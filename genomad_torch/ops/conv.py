@@ -1,0 +1,157 @@
+"""The IGLOO causal convolutions: kernels K5 (``embed_conv``, conv1) and K4
+(``causal_conv``, conv2/conv3).
+
+Counterparts of ``genomad_tpu/ops/conv_pallas.py``. Each kernel is written
+by hand for Hopper in ``genomad_torch/csrc/`` (see the note at the top of
+each source) and has a plain PyTorch version beside it here. A wrapper
+launches its kernel for CUDA tensors (or raises) and takes the plain version
+only for tensors on the CPU. ``<wrapper>.launches`` counts kernel launches.
+
+Both follow the rounding points of the JAX graph (``igloo._embed_onehot_conv``
+/ ``igloo._causal_conv`` + ``_leaky_relu``): the conv result is rounded to the
+compute dtype, the bias is added in that dtype, and LeakyReLU(0.1) is applied
+in that dtype. In float32 these roundings are no-ops.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from genomad_torch.ops import _build
+
+K_SIZE = 6
+HALO = K_SIZE - 1
+LEAKY_SLOPE = 0.1
+
+_SIGNATURES = {
+    "embed_conv": {
+        "embed_conv_launch": [_build.P] * 4 + [_build.I] * 5 + [_build.F, _build.I, _build.P],
+    },
+    "causal_conv": {
+        "causal_conv_launch": [_build.P] * 4 + [_build.I] * 4 + [_build.F, _build.I, _build.P],
+    },
+}
+
+
+def conv_epilogue(acc: torch.Tensor, bias: torch.Tensor, dtype, apply_leaky: bool) -> torch.Tensor:
+    """f32 accumulator -> compute dtype, + bias, LeakyReLU (JAX rounding points)."""
+    out = acc.to(dtype) + bias.to(dtype)
+    if apply_leaky:
+        slope = torch.tensor(LEAKY_SLOPE, dtype=dtype, device=out.device)
+        out = torch.where(out >= 0, out, out * slope)
+    return out
+
+
+def _slope(dtype) -> float:
+    """LeakyReLU slope as the compute dtype holds it (JAX multiplies by the
+    weakly-typed 0.1 in that dtype)."""
+    return float(torch.tensor(LEAKY_SLOPE, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# K5: embed_conv (conv1)
+# ---------------------------------------------------------------------------
+
+
+def embed_conv_plain(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, apply_leaky: bool = True) -> torch.Tensor:
+    """out[b, t] = bias + sum_k kernel[k, tokens[b, t-5+k]], causal positions
+    (t-5+k < 0) adding nothing; f32 sum, rounded as in the JAX graph."""
+    k_size, vocab, channels = kernel.shape
+    length = tokens.shape[1]
+    # row `vocab` of each tap is the causal zero padding
+    table = torch.cat([kernel.float(), kernel.new_zeros((k_size, 1, channels), dtype=torch.float32)], dim=1)
+    padded = F.pad(tokens.long(), (k_size - 1, 0), value=vocab)
+    acc = table[0][padded[:, :length]]
+    for k in range(1, k_size):
+        acc = acc + table[k][padded[:, k : k + length]]
+    return conv_epilogue(acc, bias, kernel.dtype, apply_leaky)
+
+
+def embed_conv(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, apply_leaky: bool = True) -> torch.Tensor:
+    """First-layer causal one-hot conv + bias (+ LeakyReLU).
+
+    tokens: (B, L) int32 in [0, V); kernel: (6, V, C) float32 or bfloat16;
+    bias: (C,) of the kernel's dtype. Returns (B, L, C) in the kernel's dtype.
+    The kernel trusts the token range; the model's tokenizer produces
+    [0, 256] for the 257-row vocabulary.
+    """
+    if not _build.on_cuda(tokens, kernel, bias):
+        return embed_conv_plain(tokens, kernel, bias, apply_leaky)
+    _build.require(tokens.dim() == 2 and tokens.dtype == torch.int32, "tokens must be (B, L) int32")
+    _build.require(kernel.dim() == 3 and kernel.shape[0] == K_SIZE, "kernel must be (6, V, C)")
+    _build.require(kernel.dtype in _build.DTYPES and bias.dtype == kernel.dtype, "kernel/bias must share a float32 or bfloat16 dtype")
+    _build.require(bias.shape == (kernel.shape[2],), "bias must be (C,)")
+    _build.require(all(t.is_contiguous() for t in (tokens, kernel, bias)), "inputs must be contiguous")
+    B, L = tokens.shape
+    _, V, C = kernel.shape
+    out = torch.empty((B, L, C), dtype=kernel.dtype, device=tokens.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("embed_conv", _SIGNATURES["embed_conv"])
+    with torch.cuda.device(tokens.device):
+        err = lib.embed_conv_launch(
+            tokens.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            B, L, V, C, int(kernel.dtype == torch.bfloat16), _slope(kernel.dtype), int(apply_leaky),
+            _build.stream_ptr(tokens.device),
+        )
+    _build.check(err, "embed_conv")
+    embed_conv.launches += 1
+    return out
+
+
+embed_conv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: causal_conv (conv2 / conv3)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, apply_leaky: bool = True) -> torch.Tensor:
+    """out[b, t] = bias + sum_k x[b, t-5+k] @ kernel[k] (zero rows before
+    t = 0); f32 products and sums, rounded as in the JAX graph."""
+    k_size = kernel.shape[0]
+    length = x.shape[1]
+    xp = F.pad(x.float(), (0, 0, k_size - 1, 0))
+    w = kernel.float()
+    acc = torch.matmul(xp[:, :length], w[0])
+    for k in range(1, k_size):
+        acc = acc + torch.matmul(xp[:, k : k + length], w[k])
+    return conv_epilogue(acc, bias, x.dtype, apply_leaky)
+
+
+def causal_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, apply_leaky: bool = True) -> torch.Tensor:
+    """Width-6 causal conv + bias (+ LeakyReLU): (B, L, C) -> (B, L, C).
+
+    kernel: (6, C, C) in x's dtype (float32 or bfloat16); bias: (C,). The
+    bf16 kernel takes C = 128, the f32 kernel C <= 332.
+    """
+    if not _build.on_cuda(x, kernel, bias):
+        return causal_conv_plain(x, kernel, bias, apply_leaky)
+    _build.require(x.dim() == 3, "x must be (B, L, C)")
+    B, L, C = x.shape
+    _build.require(kernel.shape == (K_SIZE, C, C), "kernel must be (6, C, C)")
+    _build.require(bias.shape == (C,), "bias must be (C,)")
+    _build.require(x.dtype in _build.DTYPES and kernel.dtype == x.dtype and bias.dtype == x.dtype, "x/kernel/bias must share a float32 or bfloat16 dtype")
+    _build.require(all(t.is_contiguous() for t in (x, kernel, bias)), "inputs must be contiguous")
+    if x.dtype == torch.bfloat16:
+        _build.require(C == _build.TC_CHANNELS, f"the bf16 kernel takes C = {_build.TC_CHANNELS}")
+    else:
+        _build.require((32 + HALO) * C * 4 <= 48 * 1024, "the f32 kernel takes C <= 332")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("causal_conv", _SIGNATURES["causal_conv"])
+    with torch.cuda.device(x.device):
+        err = lib.causal_conv_launch(
+            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            B, L, C, int(x.dtype == torch.bfloat16), _slope(x.dtype), int(apply_leaky),
+            _build.stream_ptr(x.device),
+        )
+    _build.check(err, "causal_conv")
+    causal_conv.launches += 1
+    return out
+
+
+causal_conv.launches = 0
