@@ -6,17 +6,35 @@
 Phases (any failure makes the script exit non-zero without the final line):
 
 1. device   - requires CUDA; prints the card's name and power limit.
-2. build    - compiles every kernel of ``genomad_torch/csrc`` with nvcc.
+2. build    - compiles every kernel of ``genomad_torch/csrc`` with nvcc,
+              one process per source, all started together.
 3. kernels  - holds K5 embed_conv, K4 causal_conv and K2 fused_reduce against
-              their plain PyTorch versions at the main path's shapes (B=128,
+              their plain PyTorch versions at the nn path's shapes (B=128,
               L=6016, C=128, full-size synthetic weights, tokens from random
               DNA with N runs) in bf16 and in f32 (TF32 off), and at a ragged
               shape; times kernel, plain version and the PyTorch library call
               that computes the same function, beside the card's bound.
-4. main     - nn-classification through its entry point on a synthetic
+4. sw       - holds K1 sw_pairs (Smith-Waterman) bit for bit against its
+              plain version: the annotate path's buckets (Lq = Lp = 256 and
+              384, N = 4096 pairs from an integral 20,000-profile DB staged
+              in bf16), forward and reverse passes, with and without the
+              real lengths, a float-PSSM f32 bucket, a ragged N, one
+              1024 x 1024 pair and one 4096-bucket pair; times the kernel
+              and the plain version, beside the bound and the cells/s.
+5. main     - nn-classification through its entry point on a synthetic
               metagenome of >= 24 Mbp (bf16, batch 128); checks the TSV, the
               kernels' launch counts, and the f32 forward with the kernels
               against the all-plain f32 forward on the CPU.
+6. annotate - annotate through its entry point on a DB directory with the
+              20,000-profile integral DB and a 16-profile integrase DB, over
+              a ~2 Mbp synthetic genome with planted marker genes; checks the
+              genes table, K1's forward and reverse launches and the native
+              prefilter, and prints where the time goes.
+7. search   - the marker search on an in-memory 227,897-profile integral DB
+              (the real geNomad DB's profile count) with 500 mixed queries:
+              cold and steady seconds, k residues/s, pairs, K1 cells/s and
+              the staged DB's device memory; and a 2,000-profile search on
+              the card against the port's own CPU run.
 
 Prints the kernel table as one JSON line ({"kernels": [...]}), the
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -28,6 +46,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -47,6 +66,18 @@ CONTIG_BP = 60_000
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_TC_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+
+# K1: the f32 operations of _sw_forward's recurrence per DP cell (f: 2 sub
+# + max; h0: add + 2 max; t: sub + add; prefix max; e: sub; h: max; row
+# max), each one lane-op at 33.5 T/s (132 SMs x 128 lanes x 1.98 GHz, half
+# the 67 TFLOP/s f32 rate, which counts an FMA as two)
+SW_OPS_PER_CELL = 12
+PEAK_F32_LANE_OPS = 33.5e12
+SW_DB_PROFILES = 20_000
+REAL_DB_PROFILES = 227_897  # the geNomad DB's profile count
+SW_PAIRS = 4096
+GENOME_MBP = 2.0
+N_SEARCH_QUERIES = 500
 
 # tolerances, |kernel - plain| <= atol + rtol * |plain|:
 # bf16 outputs may differ by about one bf16 rounding step (2^-8 relative)
@@ -257,7 +288,7 @@ def kernel_phase(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path through nn-classification
+# Phase 5: the nn-classification path
 # ---------------------------------------------------------------------------
 
 
@@ -421,6 +452,515 @@ def where_the_time_goes(fasta: Path, cache_npz: Path, workdir: Path) -> dict:
     return stages
 
 
+# ---------------------------------------------------------------------------
+# Synthetic profile DBs and inputs of the annotate path (the recipes of
+# bench.py: _bench_db, bench_search's query mix, _synthetic_genome)
+# ---------------------------------------------------------------------------
+
+
+def bench_db(n_profiles: int):
+    """Integral scores, lengths 60-400, background consensus residues."""
+    from genomad_torch.ops.profiledb import ProfileDB
+    from genomad_torch.ops.statistics import BACKGROUND_FREQS
+
+    return ProfileDB.synthetic(
+        seed=1, n_profiles=n_profiles, min_len=60, max_len=400,
+        residue_freqs=BACKGROUND_FREQS, integral=True,
+    )
+
+
+def bench_queries(db, n_queries: int, seed: int = 0):
+    """60% mutated consensus sequences (planted hits, 10% substitutions),
+    40% background residues of length 60-400. Returns (names, seqs,
+    planted target per query or -1)."""
+    from genomad_torch.ops.profiledb import ALPHABET, N_AA
+    from genomad_torch.ops.statistics import BACKGROUND_FREQS
+
+    rng = np.random.default_rng(seed)
+    names, seqs, targets = [], [], []
+    for qi in range(n_queries):
+        if qi % 5 < 3:
+            target = int(rng.integers(0, db.n_profiles))
+            seq = db.consensus(target).copy()
+            pos = rng.choice(len(seq), len(seq) // 10, replace=False)
+            seq[pos] = rng.integers(0, N_AA, len(pos))
+        else:
+            target = -1
+            seq = rng.choice(N_AA, int(rng.integers(60, 400)), p=BACKGROUND_FREQS)
+        names.append(f"q_{qi}")
+        seqs.append("".join(ALPHABET[r] for r in seq))
+        targets.append(target)
+    return names, seqs, np.array(targets)
+
+
+# codons in the order of the residue alphabet ACDEFGHIKLMNPQRSTVWY
+CODONS = [
+    "GCT", "TGT", "GAT", "GAA", "TTT", "GGT", "CAT", "ATT", "AAA", "CTG",
+    "ATG", "AAT", "CCG", "CAA", "CGT", "TCT", "ACT", "GTT", "TGG", "TAT",
+]
+
+
+def synthetic_genome(total_mbp: float, seed: int = 7):
+    """Contigs with a gene-like structure: alternating spacers and ORFs."""
+    rng = np.random.default_rng(seed)
+    bases = np.array(list("ACGT"))
+    records = []
+    total = 0
+    target = int(total_mbp * 1e6)
+    ci = 0
+    while total < target:
+        parts = []
+        length = 0
+        contig_target = min(50_000, target - total)
+        while length < contig_target:
+            spacer = "".join(rng.choice(bases, int(rng.integers(50, 200))))
+            n_codons = int(rng.integers(100, 400))
+            orf = "ATG" + "".join(CODONS[i] for i in rng.integers(0, 20, n_codons)) + "TAA"
+            parts.append(spacer + orf)
+            length += len(spacer) + len(orf)
+        seq = "".join(parts)
+        records.append((f"bench_contig_{ci}", seq))
+        total += len(seq)
+        ci += 1
+    return records, total
+
+
+def planted_contigs(db, n_genes: int, seed: int):
+    """Contigs of ten genes each whose proteins are mutated consensus
+    sequences of random DB profiles (the gene caller, self-trained on the
+    synthetic genome, calls part of them on the forward strand: those are
+    the marker hits)."""
+    rng = np.random.default_rng(seed)
+    bases = np.array(list("ACGT"))
+    records, targets = [], []
+    for ci in range(0, n_genes, 10):
+        parts = []
+        for _ in range(10):
+            target = int(rng.integers(0, db.n_profiles))
+            prot = db.consensus(target).copy()
+            pos = rng.choice(len(prot), len(prot) // 10, replace=False)
+            prot[pos] = rng.integers(0, 20, len(pos))
+            spacer = "".join(rng.choice(bases, int(rng.integers(50, 200))))
+            parts.append(spacer + "ATG" + "".join(CODONS[r] for r in prot) + "TAA")
+            targets.append(target)
+        records.append((f"planted_contig_{ci // 10}", "".join(parts)))
+    return records, targets
+
+
+def write_db_dir(db_dir: Path, db) -> None:
+    """A geNomad DB directory around ``db`` (bench.py's layout): packed
+    profiles (the minimal DB is the same file), a 16-profile integrase DB,
+    17-column marker metadata and a minimal taxdump."""
+    from genomad_torch.ops.profiledb import ProfileDB
+
+    db_dir.mkdir(parents=True, exist_ok=True)
+    (db_dir / "version.txt").write_text("1.9\n")
+    db.save(db_dir / "genomad_profiles.npz")
+    shutil.copyfile(db_dir / "genomad_profiles.npz", db_dir / "genomad_mini_profiles.npz")
+    ProfileDB.synthetic(seed=99, n_profiles=16, min_len=60, max_len=90).save(db_dir / "genomad_integrase_profiles.npz")
+    header = "\t".join(
+        ["marker", "c1", "class", "c3", "spm_c", "spm_p", "spm_v", "gv",
+         "uscg", "ph", "vh", "conjscan", "amr", "acc", "desc", "t1", "t2"]
+    )
+    with open(db_dir / "nodes.dmp", "w") as f:
+        for tx, parent, rank in [(1, 1, "no rank"), (10, 1, "realm")]:
+            f.write(f"{tx}\t|\t{parent}\t|\t{rank}\t|\n")
+    with open(db_dir / "names.dmp", "w") as f:
+        for tx, name in [(1, "root"), (10, "Duplodnaviria")]:
+            f.write(f"{tx}\t|\t{name}\t|\t\t|\tscientific name\t|\n")
+    with open(db_dir / "genomad_marker_metadata.tsv", "w") as f:
+        f.write(header + "\n")
+        for i, name in enumerate(db.names):
+            spec = "VV" if i % 2 else "CC"
+            spm = ("0.1", "0.2", "0.9") if i % 2 else ("0.9", "0.2", "0.1")
+            f.write(
+                f"{name}\tx\t{spec}\tx\t{spm[0]}\t{spm[1]}\t{spm[2]}\t0\tNA\t0\t"
+                f"{1 if i % 2 else 0}\tNA\tNA\tPF{i:05d}\tdesc{i}\tx\tx\n"
+            )
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: K1 (Smith-Waterman) against its plain version
+# ---------------------------------------------------------------------------
+
+
+def sw_bucket_pairs(db, Lq_bound: int, n_pairs: int, rng, dev):
+    """Operands of one (query bucket, profile bucket) launch of the search:
+    the DB's staged profile bucket of length class ``Lq_bound``, and one
+    query row per pair in the query bucket of the same bound (a third of
+    them the pair's profile consensus with 10% substitutions and three
+    deletions, the rest background residues). Returns (all_q, all_p, idx,
+    (q_len, p_len))."""
+    from genomad_torch.ops import protein_search as ps
+    from genomad_torch.ops.profiledb import N_AA
+    from genomad_torch.ops.statistics import BACKGROUND_FREQS
+
+    b = ps._BOUNDS.index(Lq_bound)
+    lo = ps._BOUNDS[b - 1] if b else 0
+    _, all_p, _, p_len = ps._get_staged_profiles(db, b, dev)
+    ids = np.where(ps._bucket_bound(db.lengths) == b)[0]
+    rows = rng.integers(0, len(ids), n_pairs)
+    all_q = np.full((n_pairs, Lq_bound), 20, np.int32)
+    q_len = np.zeros(n_pairs, np.int32)
+    for k, r in enumerate(rows):
+        if k % 3 == 0:
+            seq = db.consensus(int(ids[r])).astype(np.int32)
+            pos = rng.choice(len(seq), len(seq) // 10, replace=False)
+            seq[pos] = rng.integers(0, N_AA, len(pos))
+            seq = np.delete(seq, rng.choice(len(seq), 3, replace=False))
+            if len(seq) <= lo:  # keep the row in this query bucket
+                seq = np.concatenate([seq, rng.integers(0, N_AA, lo + 1 - len(seq))])
+        else:
+            seq = rng.choice(N_AA, int(rng.integers(lo + 1, Lq_bound + 1)), p=BACKGROUND_FREQS)
+        all_q[k, : len(seq)] = seq
+        q_len[k] = len(seq)
+    idx = np.stack([np.arange(n_pairs), rows]).astype(np.int32)
+    return (
+        torch.from_numpy(all_q).to(dev), all_p, torch.from_numpy(idx).to(dev),
+        (torch.from_numpy(q_len).to(dev), p_len),
+    )
+
+
+def sw_equal(got, ref, what: str) -> float:
+    """Raises unless best, end_i and end_j are bit-equal; returns max |diff|."""
+    for name, g, r in zip(("best", "end_i", "end_j"), got, ref):
+        if not torch.equal(g, r):
+            bad = int((g != r).sum())
+            raise AssertionError(f"K1 {what}: {name} differs from the plain version in {bad} of {g.numel()} pairs")
+    return float((got[0] - ref[0]).abs().max()) if got[0].numel() else 0.0
+
+
+def sw_cells(q_len, p_len, idx, ends=None) -> float:
+    """DP cells K1 computes at the pairs' real lengths."""
+    rows = q_len[idx[0].long()].double()
+    cols = p_len[idx[1].long()].double()
+    if ends is not None:
+        rows = torch.minimum(rows, ends[0].double() + 1)
+        cols = torch.minimum(cols, ends[1].double() + 1)
+    return float((rows * cols).sum())
+
+
+def sw_bound(all_q, all_p, idx, q_len, p_len, cells):
+    """(ms, by): the larger of the bytes each input is read once / written
+    once (the referenced query rows and profiles at their real lengths, the
+    indices, the outputs) over 3.35 TB/s, and the recurrence's operations
+    over 33.5 T lane-ops/s."""
+    q_rows = torch.unique(idx[0].long())
+    p_rows = torch.unique(idx[1].long())
+    n = idx.shape[1]
+    bytes_moved = (
+        float(q_len[q_rows].double().sum()) * 4
+        + float(p_len[p_rows].double().sum()) * 21 * all_p.element_size()
+        + n * 8 + n * 12
+    )
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = cells * SW_OPS_PER_CELL / PEAK_F32_LANE_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sw_kernel_phase(results: dict, db) -> None:
+    from genomad_torch.ops import protein_search as ps
+    from genomad_torch.ops import sw
+    from genomad_torch.ops.profiledb import ProfileDB
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    errs = []
+    timed = {}
+    for L in (256, 384):
+        all_q, all_p, idx, (q_len, p_len) = sw_bucket_pairs(db, L, SW_PAIRS, rng, dev)
+        if all_p.dtype != torch.bfloat16:
+            raise AssertionError(f"the {SW_DB_PROFILES}-profile integral DB staged as {all_p.dtype}, not bf16")
+        lengths = (q_len, p_len)
+        fwd = sw.sw_pairs(all_q, all_p, idx, lengths=lengths)
+        ref = sw.sw_pairs_plain(all_q, all_p, idx)
+        errs.append(sw_equal(fwd, ref, f"forward {L}x{L} bf16 (real lengths)"))
+        errs.append(sw_equal(sw.sw_pairs(all_q, all_p, idx), ref, f"forward {L}x{L} bf16 (full bucket)"))
+        ends = torch.stack([fwd[1], fwd[2]])
+        rev = sw.sw_pairs(all_q, all_p, idx, ends=ends, lengths=lengths)
+        errs.append(sw_equal(rev, sw.sw_pairs_plain(all_q, all_p, idx, ends=ends), f"reverse {L}x{L} bf16"))
+        if not torch.equal(rev[0], fwd[0]):
+            raise AssertionError("K1: the reverse pass rescored an alignment differently (integral scores)")
+        ragged = idx[:, :777].contiguous()
+        errs.append(sw_equal(
+            sw.sw_pairs(all_q, all_p, ragged, ends=ends[:, :777].contiguous(), lengths=lengths),
+            sw.sw_pairs_plain(all_q, all_p, ragged, ends=ends[:, :777].contiguous()), f"ragged N=777 {L}",
+        ))
+        cells_f = sw_cells(q_len, p_len, idx)
+        cells_r = sw_cells(q_len, p_len, idx, ends)
+        timed[L] = dict(
+            args=(all_q, all_p, idx), lengths=lengths, ends=ends, cells_f=cells_f, cells_r=cells_r,
+            hits=int((fwd[0] > 0).sum()), best_max=float(fwd[0].max()),
+        )
+        torch.cuda.synchronize()
+        log(f"# sw {L}x{L}: N={SW_PAIRS} bf16 forward/reverse/full-bucket/ragged bit-equal; "
+            f"{cells_f / SW_PAIRS:.0f} cells per pair forward, {cells_r / SW_PAIRS:.0f} reverse; best max {timed[L]['best_max']}")
+
+    # float PSSMs staged in f32 (small DBs and non-integral ones)
+    fdb = ProfileDB.synthetic(seed=4, n_profiles=600, min_len=129, max_len=256)
+    fb = ps._BOUNDS.index(256)
+    _, fp, _, fp_len = ps._get_staged_profiles(fdb, fb, dev)
+    if fp.dtype != torch.float32:
+        raise AssertionError("a float-PSSM DB must stage in f32")
+    fq, _, fidx, (fq_len, _) = sw_bucket_pairs(fdb, 256, 1024, rng, dev)
+    ffwd = sw.sw_pairs(fq, fp, fidx, lengths=(fq_len, fp_len))
+    errs.append(sw_equal(ffwd, sw.sw_pairs_plain(fq, fp, fidx), "forward 256x256 f32 float PSSMs"))
+    fends = torch.stack([ffwd[1], ffwd[2]])
+    errs.append(sw_equal(
+        sw.sw_pairs(fq, fp, fidx, ends=fends, lengths=(fq_len, fp_len)),
+        sw.sw_pairs_plain(fq, fp, fidx, ends=fends), "reverse 256x256 f32 float PSSMs",
+    ))
+
+    # one 1024 x 1024 pair and one 4096-bucket pair (global-scratch path), f32 and bf16
+    for Lq, Lp, lp in ((1024, 1024, 1024), (384, 4096, 3000)):
+        cons = rng.integers(0, 20, lp)
+        pssm = np.round(rng.normal(-2.0, 0.7, (lp, 20)))
+        pssm[np.arange(lp), cons] += 7
+        p = np.zeros((1, Lp, 21), np.float32)
+        p[0, :lp, :20] = pssm
+        q = np.full((1, Lq), 20, np.int32)
+        q[0] = cons[:Lq]
+        q[0, ::7] = rng.integers(0, 20, len(q[0, ::7]))
+        qt = torch.from_numpy(q).to(dev)
+        pair = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+        lens = (torch.tensor([Lq], dtype=torch.int32, device=dev), torch.tensor([lp], dtype=torch.int32, device=dev))
+        for dtype in (torch.float32, torch.bfloat16):
+            pt = torch.from_numpy(p).to(dev, dtype)
+            one = sw.sw_pairs(qt, pt, pair, lengths=lens)
+            errs.append(sw_equal(one, sw.sw_pairs_plain(qt, pt, pair), f"forward {Lq}x{Lp} {dtype}"))
+            e1 = torch.stack([one[1], one[2]])
+            errs.append(sw_equal(sw.sw_pairs(qt, pt, pair, ends=e1), sw.sw_pairs_plain(qt, pt, pair, ends=e1), f"reverse {Lq}x{Lp} {dtype}"))
+    torch.cuda.synchronize()
+    log("# sw: float-PSSM f32 bucket, 1024x1024 pair and 4096-bucket pair bit-equal (forward and reverse)")
+
+    # timings at the annotate path's shapes: CUDA events, forward and reverse
+    t = timed[256]
+    all_q, all_p, idx = t["args"]
+    ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx, lengths=t["lengths"]), iters=20)
+    plain_ms = cuda_time(lambda: sw.sw_pairs_plain(all_q, all_p, idx), iters=3, warmup=1)
+    rev_ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx, ends=t["ends"], lengths=t["lengths"]), iters=20)
+    full_ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx), iters=20)  # every bucket cell, no real lengths
+    t384 = timed[384]
+    ms384 = cuda_time(lambda: sw.sw_pairs(*t384["args"], lengths=t384["lengths"]), iters=20)
+    bound_ms, bound_by = sw_bound(all_q, all_p, idx, *t["lengths"], t["cells_f"])
+    bound384, _ = sw_bound(*t384["args"], *t384["lengths"], t384["cells_f"])
+    results["sw_pairs"] = {
+        "name": "sw_pairs",
+        "route": "cuda",
+        "source": "genomad_torch/csrc/sw.cu",
+        "replaces": "genomad_tpu/ops/sw_pallas.py:150",
+        "launches": None,  # filled from the annotate path's run
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no PyTorch call computes Smith-Waterman
+    }
+    log(
+        "# sw timing (bf16, N=4096, real lengths): " + json.dumps({
+            "forward_256_ms": ms, "forward_256_gcells_s": t["cells_f"] / ms / 1e6, "bound_256_ms": bound_ms,
+            "bound_by": bound_by, "plain_256_ms": plain_ms,
+            "forward_256_full_bucket_ms": full_ms, "full_bucket_gcells_s": SW_PAIRS * 256 * 256 / full_ms / 1e6,
+            "reverse_256_ms": rev_ms, "reverse_256_gcells_s": t["cells_r"] / rev_ms / 1e6,
+            "forward_384_ms": ms384, "forward_384_gcells_s": t384["cells_f"] / ms384 / 1e6, "bound_384_ms": bound384,
+            "library_ms": "null: no PyTorch call computes Smith-Waterman",
+        })
+    )
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: annotate through its entry point
+# ---------------------------------------------------------------------------
+
+
+def annotate_phase(results: dict, workdir: Path, db) -> dict:
+    from genomad_torch import native
+    from genomad_torch.modules import annotate
+    from genomad_torch.ops import conv, patch_reduce, sw
+    from genomad_torch.ops import protein_search as ps
+    from genomad_torch.paths import GenomadOutputs
+
+    t0 = time.perf_counter()
+    db_dir = workdir / "genomad_db"
+    write_db_dir(db_dir, db)
+    records, total_bp = synthetic_genome(GENOME_MBP, seed=11)
+    planted, targets = planted_contigs(db, 50, seed=SEED + 3)
+    fasta = workdir / "genome.fna"
+    with open(fasta, "w") as f:
+        for h, s in records + planted:
+            f.write(f">{h}\n{s}\n")
+    total_bp += sum(len(s) for _, s in planted)
+    setup_s = time.perf_counter() - t0
+
+    for k in (conv.embed_conv, conv.causal_conv, patch_reduce.fused_reduce):
+        k.launches = 0
+    sw.sw_pairs.launches = sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = 0
+    native.native_prefilter_batch.uses = 0
+    ps.STATS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    annotate.main(fasta, workdir / "out", db_dir, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, rev = sw.sw_pairs.forward_launches, sw.sw_pairs.reverse_launches
+    nn_launches = conv.embed_conv.launches + conv.causal_conv.launches + patch_reduce.fused_reduce.launches
+    stats = dict(ps.STATS)
+
+    outputs = GenomadOutputs(fasta.stem, workdir / "out")
+    rows = [line.split("\t") for line in outputs.annotate_genes_output.read_text().splitlines()]
+    if rows[0][:4] != ["gene", "start", "end", "length"] or any(len(r) != 20 for r in rows):
+        raise AssertionError("the genes table must have 20 columns")
+    hits = {r[0]: r[8] for r in rows[1:] if r[8] != "NA"}
+    planted_hits = sum(1 for g, m in hits.items() if g.startswith("planted_contig_"))
+    if not hits:
+        raise AssertionError("no marker hit in the genes table")
+    if fwd <= 0 or rev <= 0 or sw.sw_pairs.launches != fwd + rev:
+        raise AssertionError(f"K1 launches on the annotate path: forward {fwd}, reverse {rev}")
+    if nn_launches:
+        raise AssertionError("the nn kernels ran on the annotate path")
+    if native.native_prefilter_batch.uses <= 0:
+        raise AssertionError("the native C++ prefilter did not run (numpy fallback)")
+    results["sw_pairs"]["launches"] = sw.sw_pairs.launches
+
+    # the module's own stage timers, in the log in order: gene-calling, marker-search
+    gene_s, search_s = map(float, re.findall(r"completed in ([0-9.]+)s", outputs.annotate_log.read_text()))
+    summary = {
+        "input_bp": total_bp,
+        "genes": len(rows) - 1,
+        "marker_hits": len(hits),
+        "marker_hits_on_planted_contigs": f"{planted_hits} (of {len(targets)} planted genes)",
+        "db_profiles": db.n_profiles,
+        "wall_s": wall,
+        "k1_launches": {"forward": fwd, "reverse": rev},
+        "pairs": {"forward": int(stats.get("pairs_forward", 0)), "reverse": int(stats.get("pairs_reverse", 0))},
+        "native_prefilter_calls": native.native_prefilter_batch.uses,
+        "setup_s (DB dir + FASTA, not in wall)": setup_s,
+    }
+    log("# annotate: " + json.dumps(summary))
+    where = {
+        "gene_calling_s": gene_s,
+        "marker_search_s": search_s,
+        "prefilter_s (worker thread)": stats.get("prefilter_s", 0.0),
+        "bucket_staging_s": stats.get("staging_s", 0.0),
+        "sw_forward_s": stats.get("sw_forward_s", 0.0),
+        "sw_reverse_s": stats.get("sw_reverse_s", 0.0),
+        "finalize_s": stats.get("finalize_s", 0.0),
+        "db_load_index_and_rest_of_search_s": search_s - sum(stats.get(k, 0.0) for k in ("staging_s", "sw_forward_s", "sw_reverse_s", "finalize_s")),
+        "tables_and_rest_s": wall - gene_s - search_s,
+        "k1_gcells_per_s_forward_stage": stats.get("cells_forward", 0.0) / max(stats.get("sw_forward_s", 0.0), 1e-9) / 1e9,
+    }
+    log("# where the time goes (annotate): " + json.dumps(where))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the marker search at the real DB's profile count
+# ---------------------------------------------------------------------------
+
+
+def search_device_share(names, seqs, db) -> dict:
+    """Device kernel time of one more steady search (torch.profiler) over
+    its wall time. Diagnostics only: a failure is reported, not fatal."""
+    from genomad_torch.ops import protein_search as ps
+
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ps.search(names, seqs, db)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        device_us = {e.key: e.self_device_time_total for e in kernels if e.self_device_time_total > 0}
+        device_s = sum(device_us.values()) / 1e6
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:5]
+        return {
+            "profiled_search_wall_s": wall,
+            "device_s": device_s,
+            "device_busy_share": device_s / wall,
+            "device_s_by_kernel": {k[:60]: v / 1e6 for k, v in top},
+        }
+    except Exception as exc:  # noqa: BLE001 - diagnostics must not hide the contract's result
+        return {"device_busy_share": f"not measured: {exc!r}"}
+
+
+def real_db_phase() -> dict:
+    from genomad_torch.ops import protein_search as ps
+    from genomad_torch.ops import sw
+
+    t0 = time.perf_counter()
+    db = bench_db(REAL_DB_PROFILES)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db.kmer_index(1)
+    if db.pssm_i8 is None:
+        raise AssertionError("the synthetic integral DB must have an int8 PSSM")
+    index_s = time.perf_counter() - t0
+    names, seqs, targets = bench_queries(db, N_SEARCH_QUERIES)
+    residues = sum(len(s) for s in seqs)
+
+    ps.STATS.clear()
+    sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cold_hits = ps.search(names, seqs, db)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    cold_stats = dict(ps.STATS)
+    ps.STATS.clear()
+    t0 = time.perf_counter()
+    hits = ps.search(names, seqs, db)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    stats = dict(ps.STATS)
+    if hits != cold_hits:
+        raise AssertionError("the steady search differs from the cold one")
+    planted = np.where(targets >= 0)[0]
+    found = sum(1 for qi in planted if hits.get(names[qi], ("",))[0] == str(db.names[targets[qi]]))
+    if found < 0.9 * len(planted):
+        raise AssertionError(f"only {found} of {len(planted)} planted queries hit their profile")
+    staged_gb = sum(
+        t.numel() * t.element_size() for _, t, _, _ in db.__dict__["_torch_device_buckets"].values()
+    ) / 1e9
+    summary = {
+        "db_profiles": db.n_profiles,
+        "db_positions": db.total_positions,
+        "queries": len(names),
+        "residues": residues,
+        "db_build_s": build_s,
+        "kmer_index_and_int8_s": index_s,
+        "cold_s": cold_s,
+        "steady_s": steady_s,
+        "steady_k_residues_per_s": residues / 1e3 / steady_s,
+        "hits": len(hits),
+        "planted_found": f"{found}/{len(planted)}",
+        "pairs_forward": int(stats["pairs_forward"]),
+        "pairs_reverse": int(stats["pairs_reverse"]),
+        "cells_forward": stats["cells_forward"],
+        "k1_gcells_per_s_forward_stage": stats["cells_forward"] / stats["sw_forward_s"] / 1e9,
+        "steady_stages_s": {k: v for k, v in stats.items() if k.endswith("_s")},
+        "cold_stages_s": {k: v for k, v in cold_stats.items() if k.endswith("_s")},
+        "staged_db_gb": staged_gb,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    summary.update(search_device_share(names, seqs, db))
+    log("# search at the real DB's size: " + json.dumps(summary))
+    del db
+
+    # the card against the port's own CPU run, on a 2,000-profile DB
+    small = bench_db(2_000)
+    names, seqs, _ = bench_queries(small, 60, seed=5)
+    on_card = ps.search(names, seqs, small)
+    on_cpu = ps.search(names, seqs, small, device="cpu")
+    if on_card != on_cpu or not on_card:
+        raise AssertionError(f"2,000-profile search: card {len(on_card)} hits != CPU {len(on_cpu)} hits")
+    log(f"# search 2,000 profiles x 60 queries: card == CPU ({len(on_card)} hits)")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.", file=sys.stderr)
@@ -455,12 +995,36 @@ def main() -> int:
         except Exception:  # noqa: BLE001
             failures.append("kernels")
             traceback.print_exc()
+    db = None
+    if not failures:
+        try:
+            t0 = time.perf_counter()
+            db = bench_db(SW_DB_PROFILES)
+            log(f"# {SW_DB_PROFILES}-profile integral DB built in {time.perf_counter() - t0:.1f} s")
+            sw_kernel_phase(results, db)
+        except Exception:  # noqa: BLE001
+            failures.append("sw")
+            traceback.print_exc()
     if not failures:
         try:
             with tempfile.TemporaryDirectory(prefix="genomad_torch_smoke_") as tmp:
                 main_path_phase(results, Path(tmp), smi)
         except Exception:  # noqa: BLE001
             failures.append("main")
+            traceback.print_exc()
+    if not failures:
+        try:
+            with tempfile.TemporaryDirectory(prefix="genomad_torch_annotate_") as tmp:
+                annotate_phase(results, Path(tmp), db)
+        except Exception:  # noqa: BLE001
+            failures.append("annotate")
+            traceback.print_exc()
+    del db
+    if not failures:
+        try:
+            real_db_phase()
+        except Exception:  # noqa: BLE001
+            failures.append("search")
             traceback.print_exc()
 
     if failures:

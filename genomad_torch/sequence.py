@@ -1,17 +1,22 @@
-"""Sequence core: FASTA IO, windowing and base codes.
+"""Sequence core: FASTA IO, windowing, terminal repeats and base codes.
 
-Copied from ``genomad_tpu/sequence.py`` (the parts nn-classification uses).
-Reference = apcamargo/genomad v1.12.0:
-  - Sequence semantics:     genomad/sequence.py:10-93
-  - streaming FASTA reader: genomad/sequence.py:96-121
-  - 6 kb windowing:         genomad/sequence.py:150-166
+Copied from ``genomad_tpu/sequence.py`` (all but the k-mer tokenizer: the
+port's classifier takes base codes). Reference = apcamargo/genomad v1.12.0:
+  - Sequence semantics (rc / DTR / ITR / formatting): genomad/sequence.py:10-93
+  - streaming FASTA reader:                           genomad/sequence.py:96-121
+  - 6 kb windowing generator:                         genomad/sequence.py:150-166
 """
 
 from __future__ import annotations
 
+import textwrap
+from pathlib import Path
+
 import numpy as np
 
 from genomad_torch import utils
+
+_RC_TABLE = bytes.maketrans(b"ACTGNactgn", b"TGACNtgacn")
 
 # Base -> 2-bit code; anything not ACGT (uppercase) -> 4 (invalid sentinel).
 _BASE_CODES = np.full(256, 4, dtype=np.int64)
@@ -29,8 +34,16 @@ class Sequence:
         self._seq = seq.encode("ascii") if isinstance(seq, str) else bytes(seq)
 
     @property
+    def header(self) -> str:
+        return self._header
+
+    @property
     def accession(self) -> str:
         return self._header.split()[0]
+
+    @property
+    def seq(self) -> str:
+        return self._seq.decode()
 
     @property
     def seq_ascii(self) -> bytes:
@@ -39,14 +52,56 @@ class Sequence:
     def count(self, substring: str) -> int:
         return self._seq.count(substring.encode("ascii"))
 
+    def rc(self) -> "Sequence":
+        return Sequence(self._header, self._seq.translate(_RC_TABLE)[::-1].decode())
+
+    def has_dtr(self, min_length: int = 21) -> bool:
+        """Direct terminal repeat >= min_length bp (reference: sequence.py:45-51)."""
+        seq = self._seq.lower()
+        substring = seq[:min_length]
+        pos = seq.rfind(substring)
+        if pos < len(seq) / 2:
+            return False
+        substring = seq[pos:]
+        return seq[: len(substring)] == substring
+
+    def has_itr(self, min_len: int = 21) -> bool:
+        """Inverted terminal repeat >= min_len bp (reference: sequence.py:53-55)."""
+        return self._seq.lower()[:min_len] == self.rc()._seq.lower()[:min_len]
+
+    def __str__(self) -> str:
+        return f">{self._header}\n{textwrap.fill(self.seq, 60, break_on_hyphens=False)}\n"
+
+    def __repr__(self) -> str:
+        if len(self) > 40:
+            seq = f"{self.seq[:34]}...{self.seq[-3:]}"
+        else:
+            seq = self.seq
+        return f"Sequence({self.accession}, {seq})"
+
     def __len__(self) -> int:
         return len(self._seq)
 
     def __getitem__(self, k) -> "Sequence":
         return Sequence(self._header, self._seq[k].decode())
 
+    def __eq__(self, other) -> bool:
+        if isinstance(other, Sequence):
+            return self._seq.lower() == other._seq.lower()
+        if isinstance(other, str):
+            return self._seq.lower() == other.encode("ascii").lower()
+        return NotImplemented
 
-def read_fasta(filepath, strip_n: bool = False):
+    def __hash__(self) -> int:
+        return hash(self._seq.lower())
+
+    def __add__(self, other) -> "Sequence":
+        if not isinstance(other, Sequence):
+            return NotImplemented
+        return Sequence(f"{self.accession}+{other.accession}", self.seq + other.seq)
+
+
+def read_fasta(filepath, uppercase: bool = False, strip_n: bool = False):
     """Stream Sequence records from a (possibly compressed) FASTA file.
 
     Mirrors reference semantics (genomad/sequence.py:96-121): records with
@@ -60,6 +115,8 @@ def read_fasta(filepath, strip_n: bool = False):
             if line.startswith(">"):
                 if header is not None:
                     seq = "".join(chunks)
+                    if uppercase:
+                        seq = seq.upper()
                     if strip_n:
                         seq = seq.strip("nN")
                     if seq:
@@ -70,6 +127,8 @@ def read_fasta(filepath, strip_n: bool = False):
                 chunks.append(line)
         if header is not None:
             seq = "".join(chunks)
+            if uppercase:
+                seq = seq.upper()
             if strip_n:
                 seq = seq.strip("nN")
             if seq:
@@ -81,6 +140,19 @@ def check_fasta(filepath) -> bool:
     (reference: genomad/sequence.py:124-131)."""
     accessions = [seq.accession for seq in read_fasta(filepath)]
     return bool(accessions) and len(accessions) == len(set(accessions))
+
+
+def count_seqs(filepath: Path) -> int:
+    return sum(line.startswith(">") for line in utils.read_file(filepath))
+
+
+def filter_fasta(input_filepath, output_filepath, selected_seqs, ignore_gene_suffix: bool = False) -> None:
+    """Copy selected records to a new FASTA (reference: sequence.py:138-147)."""
+    with open(output_filepath, "w") as fout:
+        for seq in read_fasta(input_filepath):
+            name = seq.accession.rsplit("_", 1)[0] if ignore_gene_suffix else seq.accession
+            if name in selected_seqs:
+                fout.write(f"{seq}\n")
 
 
 def seq_windows(seq: Sequence, length: int, min_length: int = 0, force_first_window: bool = True, max_windows=None):
@@ -100,3 +172,4 @@ def seq_windows(seq: Sequence, length: int, min_length: int = 0, force_first_win
         win += 1
         if max_windows and win == max_windows:
             break
+

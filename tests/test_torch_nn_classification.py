@@ -133,6 +133,7 @@ def test_cli_command_matches_jax_options():
         return sorted((p.name, tuple(p.opts), p.default) for p in command.params)
 
     assert options(tcli.nn_classification) == options(jcli.nn_classification)
-    assert sorted(tcli.cli.commands) == ["nn-classification"]
+    assert options(tcli.annotate) == options(jcli.annotate)
+    assert sorted(tcli.cli.commands) == ["annotate", "nn-classification"]
     result = CliRunner().invoke(tcli.cli, ["nn-classification", "--help"])
     assert result.exit_code == 0 and "--batch-size" in result.output
