@@ -8,12 +8,13 @@ Phases (any failure makes the script exit non-zero without the final line):
 1. device   - requires CUDA; prints the card's name and power limit.
 2. build    - compiles every kernel of ``genomad_torch/csrc`` with nvcc,
               one process per source, all started together.
-3. kernels  - holds K5 embed_conv, K4 causal_conv and K2 fused_reduce against
-              their plain PyTorch versions at the nn path's shapes (B=128,
-              L=6016, C=128, full-size synthetic weights, tokens from random
-              DNA with N runs) in bf16 and in f32 (TF32 off), and at a ragged
-              shape; times kernel, plain version and the PyTorch library call
-              that computes the same function, beside the card's bound.
+3. kernels  - holds K5 embed_conv, K4 causal_conv, K2 fused_reduce and K3
+              patch_reduce against their plain PyTorch versions at the nn
+              path's shapes (B=128, L=6016, C=128, full-size synthetic
+              weights, tokens from random DNA with N runs) in bf16 and in
+              f32 (TF32 off), and at a ragged shape (K3's mpi bit-equal to
+              K2's); times kernel, plain version and the PyTorch library
+              call that computes the same function, beside the card's bound.
 4. sw       - holds K1 sw_pairs (Smith-Waterman) bit for bit against its
               plain version: the annotate path's buckets (Lq = Lp = 256 and
               384, N = 4096 pairs from an integral 20,000-profile DB staged
@@ -25,12 +26,22 @@ Phases (any failure makes the script exit non-zero without the final line):
               metagenome of >= 24 Mbp (bf16, batch 128); checks the TSV, the
               kernels' launch counts, and the f32 forward with the kernels
               against the all-plain f32 forward on the CPU.
-6. annotate - annotate through its entry point on a DB directory with the
+6. forward  - the forward profiler (genomad_torch.tools.profile_forward,
+              K3's path) at B=128: ms per stage, K3's launches.
+7. annotate - annotate through its entry point on a DB directory with the
               20,000-profile integral DB and a 16-profile integrase DB, over
               a ~2 Mbp synthetic genome with planted marker genes; checks the
               genes table, K1's forward and reverse launches and the native
               prefilter, and prints where the time goes.
-7. search   - the marker search on an in-memory 227,897-profile integral DB
+8. end-to-end - cli.run_end_to_end (score calibration on) on annotate's DB
+              directory over a ~2 Mbp genome of make_gene genes plus planted
+              host-virus-host contigs with an integrase gene: a provirus on
+              the planted contigs, K1 in annotate and find-proviruses, K5/K4/K2
+              in both NN passes, the summary tables; where the time goes by
+              module, K1 by stage, the CRF's T and seconds.
+9. card-vs-cpu - run_end_to_end on the card and with device="cpu" on a small
+              fixture: files byte-equal, NN-branch scores within 1e-2.
+10. search  - the marker search on an in-memory 227,897-profile integral DB
               (the real geNomad DB's profile count) with 500 mixed queries:
               cold and steady seconds, k residues/s, pairs, K1 cells/s and
               the staged DB's device memory; and a 2,000-profile search on
@@ -78,6 +89,7 @@ REAL_DB_PROFILES = 227_897  # the geNomad DB's profile count
 SW_PAIRS = 4096
 GENOME_MBP = 2.0
 N_SEARCH_QUERIES = 500
+N_HVH_CONTIGS = 3  # planted host-virus-host contigs in the end-to-end input
 
 # tolerances, |kernel - plain| <= atol + rtol * |plain|:
 # bf16 outputs may differ by about one bf16 rounding step (2^-8 relative)
@@ -183,13 +195,19 @@ def kernel_phase(results: dict) -> None:
         mpi_ref, pooled_ref = patch_reduce.fused_reduce_plain(h1, ig["patches"], ig["w_patch"], ig["w_v"])
         e2m = max_err(mpi, mpi_ref, torch.float32)  # mpi is f32 for both dtypes
         e2p = max_err(pooled, pooled_ref, dtype)
+        mpi3 = patch_reduce.patch_reduce(h1, ig["patches"], ig["w_patch"])
+        e3 = max_err(mpi3, patch_reduce.patch_reduce_plain(h1, ig["patches"], ig["w_patch"]), torch.float32)
+        if not torch.equal(mpi3, mpi):  # one code path: K3's mpi is K2's bit for bit
+            raise AssertionError(f"K3 mpi differs from K2 mpi ({dtype}) in {int((mpi3 != mpi).sum())} values")
         torch.cuda.synchronize()
-        log(f"# kernels {name} B={B} L={L}: K5 {e5:.3g}  K4 {e4:.3g} (no leaky {e4n:.3g})  K2 mpi {e2m:.3g} pooled {e2p:.3g}")
+        log(f"# kernels {name} B={B} L={L}: K5 {e5:.3g}  K4 {e4:.3g} (no leaky {e4n:.3g})  K2 mpi {e2m:.3g} pooled {e2p:.3g}  "
+            f"K3 {e3:.3g} (bit-equal to K2 mpi)")
         if dtype == torch.bfloat16:
             entries = {
                 "embed_conv": dict(err=e5, args=(tokens, p["conv1"]["kernel"], p["conv1"]["bias"])),
                 "causal_conv": dict(err=max(e4, e4n), args=(h1, p["conv2"]["kernel"], p["conv2"]["bias"])),
                 "fused_reduce": dict(err=max(e2m, e2p), args=(h1, ig["patches"], ig["w_patch"], ig["w_v"])),
+                "patch_reduce": dict(err=e3, args=(h1, ig["patches"], ig["w_patch"])),
             }
 
     # ragged shapes: B and L multiples of no tile
@@ -210,7 +228,13 @@ def kernel_phase(results: dict) -> None:
         mpi_ref, pooled_ref = patch_reduce.fused_reduce_plain(x, patches, w_patch, w_v)
         max_err(mpi, mpi_ref, torch.float32)
         max_err(pooled, pooled_ref, dtype)
-    log("# ragged B=3 L=1001: all kernels agree with their plain versions (f32, bf16)")
+        mpi3 = patch_reduce.patch_reduce(x, patches, w_patch)
+        max_err(mpi3, patch_reduce.patch_reduce_plain(x, patches, w_patch), torch.float32)
+        if not torch.equal(mpi3, mpi):
+            raise AssertionError(f"K3 mpi differs from K2 mpi at the ragged shape ({dtype})")
+        xc, wc = x[..., :40].contiguous(), w_patch[..., :40].contiguous()  # K3 takes any C
+        max_err(patch_reduce.patch_reduce(xc, patches, wc), patch_reduce.patch_reduce_plain(xc, patches, wc), torch.float32)
+    log("# ragged B=3 L=1001: all kernels agree with their plain versions (f32, bf16); K3 also at C=40")
 
     # timings at the main path's shapes, bf16
     tok, k1, b1 = entries["embed_conv"]["args"]
@@ -256,6 +280,20 @@ def kernel_phase(results: dict) -> None:
             replaces="genomad_tpu/ops/patch_reduce.py:162",
             launches_per_batch=2,
         ),
+        "patch_reduce": dict(
+            kernel=lambda: patch_reduce.patch_reduce(y, patches, w_patch),
+            plain=lambda: patch_reduce.patch_reduce_plain(y, patches, w_patch),
+            library=None,  # no single PyTorch call computes the patch reduction
+            # y is read only at the rows the patches name
+            bound=bound(
+                B * int(torch.unique(patches).numel()) * C * es + patches.numel() * 4 + w_patch.numel() * es
+                + B * patches.shape[0] * 4,
+                f32_flops=2 * B * patches.numel() * C,
+            ),
+            replaces="genomad_tpu/ops/patch_reduce.py:219",
+            source="genomad_torch/csrc/fused_reduce.cu",
+            launches_per_batch=None,  # on the forward profiler's path, not the nn module's
+        ),
     }
     for name, t in timings.items():
         ms = cuda_time(t["kernel"], iters=20)
@@ -270,7 +308,7 @@ def kernel_phase(results: dict) -> None:
         results[name] = {
             "name": name,
             "route": "cuda",
-            "source": f"genomad_torch/csrc/{name}.cu",
+            "source": t.get("source", f"genomad_torch/csrc/{name}.cu"),
             "replaces": t["replaces"],
             "launches": None,  # filled from the main path's run
             "launches_per_batch": t["launches_per_batch"],
@@ -283,7 +321,7 @@ def kernel_phase(results: dict) -> None:
         }
         log(
             f"# {name}: {ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms}, bound {bound_ms:.4f} by {bound_by}), "
-            f"{t['launches_per_batch']} launch(es) per batch"
+            f"{t['launches_per_batch']} launch(es) per nn batch"
         )
 
 
@@ -391,8 +429,6 @@ def main_path_phase(results: dict, workdir: Path, card: str) -> dict:
     log("# main path: " + json.dumps(summary))
 
     expect = {name: results[name]["launches_per_batch"] * n_batches for name in launches}
-    for name, n in launches.items():
-        results[name]["launches"] = n
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect} for {n_batches} batches")
 
@@ -770,7 +806,7 @@ def sw_kernel_phase(results: dict, db) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: annotate through its entry point
+# Phase 7: annotate through its entry point
 # ---------------------------------------------------------------------------
 
 
@@ -821,7 +857,6 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
         raise AssertionError("the nn kernels ran on the annotate path")
     if native.native_prefilter_batch.uses <= 0:
         raise AssertionError("the native C++ prefilter did not run (numpy fallback)")
-    results["sw_pairs"]["launches"] = sw.sw_pairs.launches
 
     # the module's own stage timers, in the log in order: gene-calling, marker-search
     gene_s, search_s = map(float, re.findall(r"completed in ([0-9.]+)s", outputs.annotate_log.read_text()))
@@ -855,7 +890,7 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the marker search at the real DB's profile count
+# Phase 10: the marker search at the real DB's profile count
 # ---------------------------------------------------------------------------
 
 
@@ -961,6 +996,430 @@ def real_db_phase() -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the forward by stage (the forward profiler, K3's path)
+# ---------------------------------------------------------------------------
+
+
+def forward_phase(results: dict) -> dict:
+    from genomad_torch.ops import patch_reduce
+    from genomad_torch.tools import profile_forward
+
+    patch_reduce.patch_reduce.launches = 0
+    torch.cuda.synchronize()
+    out = profile_forward.profile_forward(BATCH)
+    torch.cuda.synchronize()
+    launches = patch_reduce.patch_reduce.launches
+    if launches <= 0 or launches != out["k3_launches"]:
+        raise AssertionError(f"K3 launches on the forward profiler's path: {launches}")
+    results["patch_reduce"]["launches"] = launches
+    log("# forward by stage: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: end-to-end through run_end_to_end (FASTA -> summary)
+# ---------------------------------------------------------------------------
+
+
+def _codons_for():
+    """Synonymous codons per amino acid under code 11."""
+    from genomad_torch.ops.gene_calling import _CODON_TABLE_11
+
+    table: dict = {}
+    for i, aa in enumerate(_CODON_TABLE_11):
+        table.setdefault(aa, []).append("ACGT"[i // 16] + "ACGT"[(i // 4) % 4] + "ACGT"[i % 4])
+    return table
+
+
+def make_gene(protein: str, seed: int = 0, rbs: str = "AGGAGG", spacer: int = 7) -> str:
+    """RBS + spacer + ATG + CDS + stop on the forward strand, with varied
+    synonymous codons so the antisense frames hit stops as natural sequence
+    does (the recipe of the gene-calling tests)."""
+    codons = _codons_for()
+    rng = np.random.default_rng(seed)
+    return rbs + "C" * spacer + "ATG" + "".join(codons[aa][rng.integers(0, len(codons[aa]))] for aa in protein) + "TAA"
+
+
+def intergenic(n: int) -> str:
+    """Stop-dense filler on both strands under every genetic code ('TTAA'
+    is its own reverse complement and tiles TAA through every frame)."""
+    return ("TTAA" * (n // 4 + 1))[:n]
+
+
+def consensus_protein(db, p: int) -> str:
+    from genomad_torch.ops.profiledb import ALPHABET
+
+    return "".join(ALPHABET[r] for r in db.consensus(p))
+
+
+def gene_genome(db, total_mbp: float, seed: int):
+    """Contigs of up to 50 kbp built with ``make_gene``: proteins of 100-400
+    background residues, a tenth of them mutated consensus sequences of DB
+    profiles (10% substitutions: marker hits), each gene after a TTAA
+    spacer. The gene caller trains on the whole input, and on this genome
+    it learns the planted genes' recipe (``synthetic_genome``'s one codon
+    per residue and missing RBS train it to call none of them). Returns
+    (records, total bp)."""
+    from genomad_torch.ops.profiledb import ALPHABET
+    from genomad_torch.ops.statistics import BACKGROUND_FREQS
+
+    rng = np.random.default_rng(seed)
+    records, total = [], 0
+    while total < total_mbp * 1e6:
+        parts, length = [], 0
+        while length < min(50_000, total_mbp * 1e6 - total):
+            if rng.random() < 0.1:
+                prot = db.consensus(int(rng.integers(0, db.n_profiles))).copy()
+                pos = rng.choice(len(prot), len(prot) // 10, replace=False)
+                prot[pos] = rng.integers(0, 20, len(pos))
+            else:
+                prot = rng.choice(20, int(rng.integers(100, 400)), p=BACKGROUND_FREQS)
+            gene = intergenic(int(rng.integers(30, 200))) + make_gene("".join(ALPHABET[r] for r in prot), seed=int(rng.integers(0, 1 << 30)))
+            parts.append(gene)
+            length += len(gene)
+        records.append((f"genome_contig_{len(records)}", "".join(parts) + intergenic(30)))
+        total += len(records[-1][1])
+    return records, total
+
+
+def host_virus_host_contigs(db, integrase_db, n_contigs: int, seed: int):
+    """Contigs of 7 host genes (even profiles: CC markers), 20 virus genes
+    (odd profiles: VV markers), an integrase gene (integrase DB) and 7 host
+    genes. Returns [(name, seq)]."""
+    rng = np.random.default_rng(seed)
+    even = np.arange(0, db.n_profiles, 2)
+    odd = np.arange(1, db.n_profiles, 2)
+    records = []
+    for ci in range(n_contigs):
+        host = [int(x) for x in rng.choice(even, 14, replace=False)]
+        virus = [int(x) for x in rng.choice(odd, 20, replace=False)]
+        parts = [intergenic(60)]
+        for k, prot in enumerate(
+            [consensus_protein(db, p) for p in host[:7] + virus]
+            + [consensus_protein(integrase_db, ci % integrase_db.n_profiles)]
+            + [consensus_protein(db, p) for p in host[7:]]
+        ):
+            parts += [make_gene(prot, seed=1000 * ci + k), intergenic(30)]
+        records.append((f"hvh_contig_{ci}", "".join(parts)))
+    return records
+
+
+def _kernel_counts() -> dict:
+    from genomad_torch.ops import conv, patch_reduce, sw
+
+    return {
+        "sw_pairs_forward": sw.sw_pairs.forward_launches,
+        "sw_pairs_reverse": sw.sw_pairs.reverse_launches,
+        "embed_conv": conv.embed_conv.launches,
+        "causal_conv": conv.causal_conv.launches,
+        "fused_reduce": patch_reduce.fused_reduce.launches,
+        "patch_reduce": patch_reduce.patch_reduce.launches,
+    }
+
+
+def _reset_kernel_counts() -> None:
+    from genomad_torch.ops import conv, patch_reduce, sw
+
+    sw.sw_pairs.launches = sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = 0
+    for k in (conv.embed_conv, conv.causal_conv, patch_reduce.fused_reduce, patch_reduce.patch_reduce):
+        k.launches = 0
+
+
+K1_COUNTS = ("sw_pairs_forward", "sw_pairs_reverse")
+NN_COUNTS = ("embed_conv", "causal_conv", "fused_reduce")
+
+
+class StageRecorder:
+    """Wraps each module's ``main`` (and the CRF) while run_end_to_end runs:
+    per call, its wall seconds and the kernel launches and search pairs it
+    added. annotate and the NN contig pass overlap in time (two threads), so
+    each claims only its own kernels (K1 and the search's pairs for
+    annotate, K5/K4/K2 for nn-classification); the stages that run alone
+    claim every count."""
+
+    MODULES = ("annotate", "nn_classification", "find_proviruses", "marker_classification",
+               "aggregated_classification", "score_calibration", "summary")
+    OWN = {"annotate": K1_COUNTS, "nn_classification": NN_COUNTS}
+
+    def __init__(self):
+        self.calls: list = []
+        self.crf: list = []
+        self._saved: list = []
+
+    def __enter__(self):
+        import importlib
+
+        from genomad_torch.models import crf
+        from genomad_torch.ops import protein_search as ps
+
+        for name in self.MODULES:
+            module = importlib.import_module(f"genomad_torch.modules.{name}")
+            self._wrap(module, "main", name, ps)
+        original = crf.score_provirus_genes_batch
+        self._saved.append((crf, "score_provirus_genes_batch", original))
+
+        def crf_timed(spm_v_list, spm_c_list, device=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = original(spm_v_list, spm_c_list, device=device)
+            torch.cuda.synchronize()
+            self.crf.append({"contigs": len(spm_v_list), "T": max((len(v) for v in spm_v_list), default=0),
+                             "s": time.perf_counter() - t0})
+            return out
+
+        crf.score_provirus_genes_batch = crf_timed
+        return self
+
+    def _wrap(self, module, attr, name, ps):
+        original = getattr(module, attr)
+        self._saved.append((module, attr, original))
+
+        own = self.OWN.get(name)
+        searches = own is None or own == K1_COUNTS  # the nn pass never searches
+
+        def timed(*args, **kwargs):
+            before = _kernel_counts()
+            pairs = (ps.STATS.get("pairs_forward", 0), ps.STATS.get("pairs_reverse", 0)) if searches else (0, 0)
+            t0 = time.perf_counter()
+            try:
+                return original(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                after = _kernel_counts()
+                self.calls.append({
+                    "stage": name,
+                    "wall_s": time.perf_counter() - t0,
+                    "launches": {k: (after[k] - before[k]) if own is None or k in own else 0 for k in after},
+                    "pairs_forward": int(ps.STATS.get("pairs_forward", 0) - pairs[0]) if searches else 0,
+                    "pairs_reverse": int(ps.STATS.get("pairs_reverse", 0) - pairs[1]) if searches else 0,
+                })
+
+        setattr(module, attr, timed)
+
+    def __exit__(self, *exc):
+        for module, attr, original in reversed(self._saved):
+            setattr(module, attr, original)
+        return False
+
+
+def end_to_end_phase(results: dict, workdir: Path, db) -> dict:
+    from genomad_torch import cli, database
+    from genomad_torch.ops import protein_search as ps
+    from genomad_torch.ops.profiledb import ProfileDB
+    from genomad_torch.paths import GenomadOutputs
+
+    db_dir = workdir / "genomad_db"  # the annotate phase's 20,000-profile DB directory
+    integrase_db = ProfileDB.load(db_dir / "genomad_integrase_profiles.npz")
+    records, total_bp = gene_genome(db, GENOME_MBP, seed=SEED + 6)
+    planted = host_virus_host_contigs(db, integrase_db, N_HVH_CONTIGS, seed=SEED + 4)
+    fasta = workdir / "e2e.fna"
+    with open(fasta, "w") as f:
+        for h, seq in records + planted:
+            f.write(f">{h}\n{seq}\n")
+    total_bp += sum(len(seq) for _, seq in planted)
+    out_dir = workdir / "e2e_out"
+
+    # as a fresh process: the annotate phase's loaded DB is dropped (its
+    # k-mer index file stays on disk, as it does for a user's later runs)
+    database._PROFILE_DB_CACHE.clear()
+    torch.cuda.empty_cache()
+    _reset_kernel_counts()
+    ps.STATS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StageRecorder() as rec:
+        # --relaxed (every summary filter off): the synthetic NN weights and
+        # forest make the scores meaningless, and the default filters may
+        # drop every row
+        cli.run_end_to_end(fasta, out_dir, db_dir, verbose=False, enable_score_calibration=True, **cli._RELAXED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+
+    outputs = GenomadOutputs(fasta.stem, out_dir)
+    by_stage: dict = {}
+    for call in rec.calls:
+        name = call["stage"]
+        if name in by_stage:  # the second nn-classification call: the provirus pass
+            name += "_provirus_pass"
+        by_stage[name] = call
+    k1, nn = K1_COUNTS, NN_COUNTS
+    for stage in ("annotate", "find_proviruses"):
+        got = by_stage[stage]["launches"]
+        if not all(got[k] > 0 for k in k1):
+            raise AssertionError(f"K1 did not launch forward and reverse in {stage}: {got}")
+    for stage in ("nn_classification", "nn_classification_provirus_pass"):
+        got = by_stage.get(stage, {}).get("launches", {})
+        if not all(got.get(k, 0) > 0 for k in nn):
+            raise AssertionError(f"K5/K4/K2 did not all launch in {stage}: {got}")
+    if launches["patch_reduce"]:
+        raise AssertionError("K3 ran on the end-to-end path")
+    if any(launches[k] != sum(c["launches"][k] for c in rec.calls) for k in launches):
+        raise AssertionError(f"kernel launches outside the module entry points: {launches}")
+
+    provirus_rows = [r.split("\t") for r in outputs.find_proviruses_output.read_text().splitlines()[1:]]
+    found = sorted({r[1] for r in provirus_rows if r[1].startswith("hvh_contig_")})
+    if not found:
+        raise AssertionError(f"no provirus found on the {N_HVH_CONTIGS} planted contigs ({len(provirus_rows)} in all)")
+    with_integrase = sum(1 for r in provirus_rows if r[1].startswith("hvh_contig_") and r[8] != "NA")
+    tables = {}
+    for name, header in (("summary_virus_output", "seq_name\tlength\ttopology\tcoordinates"),
+                         ("summary_plasmid_output", "seq_name\tlength\ttopology\tn_genes")):
+        lines = getattr(outputs, name).read_text().splitlines()
+        if not lines or not lines[0].startswith(header):
+            raise AssertionError(f"{name}: bad header {lines[:1]}")
+        tables[name] = len(lines) - 1
+    if not sum(tables.values()):
+        raise AssertionError("the summary tables have no rows")
+    calibrated = np.load(outputs.calibrated_aggregated_classification_npz_output)["predictions"]
+    if not np.isfinite(calibrated).all() or calibrated.shape[1] != 3:
+        raise AssertionError("calibrated aggregated scores are not finite (N, 3)")
+
+    for name in ("sw_pairs", "embed_conv", "causal_conv", "fused_reduce"):
+        results[name]["launches"] = launches[name] if name != "sw_pairs" else launches["sw_pairs_forward"] + launches["sw_pairs_reverse"]
+    summary = {
+        "input_bp": total_bp,
+        "contigs": len(records) + len(planted),
+        "wall_s": wall,
+        "proviruses": len(provirus_rows),
+        "planted_contigs_with_a_provirus": f"{len(found)} of {N_HVH_CONTIGS}",
+        "proviruses_with_their_integrase": with_integrase,
+        "summary_rows": tables,
+        "launches": launches,
+    }
+    log("# end-to-end: " + json.dumps(summary))
+    where = {
+        stage: {
+            "wall_s": c["wall_s"],
+            **({"k1_launches": {"forward": c["launches"]["sw_pairs_forward"], "reverse": c["launches"]["sw_pairs_reverse"]},
+                "pairs": {"forward": c["pairs_forward"], "reverse": c["pairs_reverse"]}}
+               if c["launches"]["sw_pairs_forward"] else {}),
+            **({"nn_launches": {k: c["launches"][k] for k in nn}} if c["launches"]["embed_conv"] else {}),
+        }
+        for stage, c in by_stage.items()
+    }
+    where["crf"] = rec.crf
+    where["overlap_note"] = "annotate runs on a worker thread beside the nn contig pass; their walls overlap"
+    where.update(end_to_end_device_share(fasta, out_dir, db_dir))
+    log("# where the time goes (end-to-end): " + json.dumps(where))
+    return summary
+
+
+def end_to_end_device_share(fasta: Path, out_dir: Path, db_dir: Path) -> dict:
+    """Device kernel time of one more run (--restart, torch.profiler) over
+    its wall time. Diagnostics only: a failure is reported, not fatal."""
+    from genomad_torch import cli
+
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cli.run_end_to_end(fasta, out_dir, db_dir, verbose=False, enable_score_calibration=True, restart=True, **cli._RELAXED)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        device_us = {e.key: e.self_device_time_total for e in kernels if e.self_device_time_total > 0}
+        device_s = sum(device_us.values()) / 1e6
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+        return {
+            "profiled_rerun_wall_s": wall,
+            "device_s": device_s,
+            "device_busy_share": device_s / wall,
+            "device_s_by_kernel": {k[:60]: v / 1e6 for k, v in top},
+        }
+    except Exception as exc:  # noqa: BLE001 - diagnostics must not hide the contract's result
+        return {"device_busy_share": f"not measured: {exc!r}"}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: run_end_to_end on the card against device="cpu"
+# ---------------------------------------------------------------------------
+
+# the scores that pass through the bf16 NN branch agree to this bound (the
+# nn-classification module's, PR 1); every other output is byte-equal, or
+# within f32 summation order (rtol 1e-5) for the feature and marker npz
+NN_ATOL = 1e-2
+NPZ_RTOL = 1e-5
+
+
+def _compare_npz(ref_path: Path, got_path: Path, **tol) -> float:
+    ref, got = np.load(ref_path), np.load(got_path)
+    if sorted(ref.files) != sorted(got.files):
+        raise AssertionError(f"{ref_path.name}: keys {got.files} != {ref.files}")
+    worst = 0.0
+    for key in ref.files:
+        if ref[key].dtype.kind in "fc":
+            np.testing.assert_allclose(got[key], ref[key], err_msg=f"{ref_path.name}:{key}", **tol)
+            if ref[key].size:
+                worst = max(worst, float(np.abs(got[key] - ref[key]).max()))
+        else:
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=f"{ref_path.name}:{key}")
+    return worst
+
+
+def _compare_summary(ref_path: Path, got_path: Path) -> int:
+    ref = [line.split("\t") for line in ref_path.read_text().splitlines()]
+    got = [line.split("\t") for line in got_path.read_text().splitlines()]
+    if got[0] != ref[0] or len(got) != len(ref):
+        raise AssertionError(f"{ref_path.name}: {len(got)} lines != {len(ref)}")
+    scores = {i for i, name in enumerate(ref[0]) if name.endswith("_score") or name == "fdr"}
+    for r, g in zip(ref[1:], got[1:]):
+        if [g[i] for i in range(len(g)) if i not in scores] != [r[i] for i in range(len(r)) if i not in scores]:
+            raise AssertionError(f"{ref_path.name}: row {g} != {r}")
+        np.testing.assert_allclose([float(g[i]) for i in sorted(scores)], [float(r[i]) for i in sorted(scores)], atol=NN_ATOL, rtol=0)
+    return len(ref) - 1
+
+
+def card_vs_cpu_phase(workdir: Path) -> dict:
+    from genomad_torch import cli
+    from genomad_torch.ops.profiledb import ProfileDB
+    from genomad_torch.paths import GenomadOutputs
+
+    db = ProfileDB.synthetic(seed=17, n_profiles=40, min_len=60, max_len=120)
+    db_dir = workdir / "small_db"
+    write_db_dir(db_dir, db)
+    integrase_db = ProfileDB.load(db_dir / "genomad_integrase_profiles.npz")
+    records = host_virus_host_contigs(db, integrase_db, 1, seed=SEED + 5)
+    for name, profiles in (("host1", (0, 2, 4, 6, 8, 10)), ("virus1", (1, 3, 5, 7, 9, 11))):
+        seq = intergenic(60) + "".join(make_gene(consensus_protein(db, p), seed=p) + intergenic(30) for p in profiles)
+        records.append((name, seq + intergenic(800)))
+    fasta = workdir / "small.fna"
+    fasta.write_text("".join(f">{h}\n{seq}\n" for h, seq in records))
+    walls = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        cli.run_end_to_end(fasta, workdir / device, db_dir, verbose=False, enable_score_calibration=True,
+                           device=device, **cli._RELAXED)
+        walls[device] = time.perf_counter() - t0
+    ref, got = GenomadOutputs("small", workdir / "cpu"), GenomadOutputs("small", workdir / "cuda")
+    byte_equal = (
+        "annotate_proteins_output", "annotate_mmseqs2_output", "annotate_genes_output", "annotate_taxonomy_output",
+        "find_proviruses_output", "find_proviruses_nucleotide_output", "find_proviruses_proteins_output",
+        "find_proviruses_genes_output", "find_proviruses_taxonomy_output", "find_proviruses_mmseqs2_output",
+        "features_output",
+    )
+    for name in byte_equal:
+        if getattr(got, name).read_bytes() != getattr(ref, name).read_bytes():
+            raise AssertionError(f"card != CPU: {name} differs")
+    errs = {}
+    for name in ("features_npz_output", "marker_classification_npz_output"):
+        errs[name] = _compare_npz(getattr(ref, name), getattr(got, name), rtol=NPZ_RTOL, atol=0)
+    for name in ("nn_classification_npz_output", "aggregated_classification_npz_output",
+                 "calibrated_aggregated_classification_npz_output", "provirus_nn_classification_npz_output"):
+        errs[name] = _compare_npz(getattr(ref, name), getattr(got, name), atol=NN_ATOL, rtol=0)
+    rows = _compare_summary(ref.summary_virus_output, got.summary_virus_output)
+    rows += _compare_summary(ref.summary_plasmid_output, got.summary_plasmid_output)
+    proviruses = len(got.find_proviruses_output.read_text().splitlines()) - 1
+    if not rows or not proviruses:
+        raise AssertionError(f"card == CPU fixture: {rows} summary rows, {proviruses} proviruses")
+    summary = {"contigs": len(records), "proviruses": proviruses, "summary_rows": rows,
+               "wall_s": walls, "max_abs_diff": errs}
+    log("# card == CPU (run_end_to_end, small fixture): " + json.dumps(summary))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.", file=sys.stderr)
@@ -1014,12 +1473,31 @@ def main() -> int:
             traceback.print_exc()
     if not failures:
         try:
-            with tempfile.TemporaryDirectory(prefix="genomad_torch_annotate_") as tmp:
-                annotate_phase(results, Path(tmp), db)
+            forward_phase(results)
         except Exception:  # noqa: BLE001
-            failures.append("annotate")
+            failures.append("forward")
             traceback.print_exc()
+    if not failures:
+        with tempfile.TemporaryDirectory(prefix="genomad_torch_annotate_") as tmp:
+            try:
+                annotate_phase(results, Path(tmp), db)
+            except Exception:  # noqa: BLE001
+                failures.append("annotate")
+                traceback.print_exc()
+            if not failures:
+                try:
+                    end_to_end_phase(results, Path(tmp), db)
+                except Exception:  # noqa: BLE001
+                    failures.append("end-to-end")
+                    traceback.print_exc()
     del db
+    if not failures:
+        try:
+            with tempfile.TemporaryDirectory(prefix="genomad_torch_card_cpu_") as tmp:
+                card_vs_cpu_phase(Path(tmp))
+        except Exception:  # noqa: BLE001
+            failures.append("card-vs-cpu")
+            traceback.print_exc()
     if not failures:
         try:
             real_db_phase()

@@ -4,16 +4,20 @@ A port of ``genomad_tpu`` (JAX/Pallas for TPUs) to PyTorch with kernels
 written by hand for Hopper (CUDA C++ for sm_90a, under ``csrc/``). The JAX
 package is the numerical reference; this package imports nothing of it.
 
-Ported so far, the nn-classification branch (IGLOO window classifier):
+Every command of ``genomad_tpu`` is ported; ``end-to-end`` runs FASTA to
+the virus and plasmid summaries:
 
-    FASTA -> 6 kb windows (uint8 base codes) -> IGLOO forward on the card
-          -> per-contig mean of window class probabilities
+    FASTA -> annotate: genes and proteins (host) -> k-mer prefilter (host,
+             C++) -> Smith-Waterman of the candidate pairs on the card (K1)
+          || nn-classification: 6 kb windows -> IGLOO forward on the card
+             (K5, K4, K2) -> per-contig mean of window class probabilities
+          -> find-proviruses: CRF on the card, integrase search (K1),
+             tRNA scan (host) -> marker-classification: decision forest on
+             the card -> the NN provirus pass -> aggregated-classification
+          -> [score-calibration] -> summary
 
-and the annotate branch (gene calling and the marker search):
-
-    FASTA -> genes and proteins (host) -> k-mer prefilter (host, C++)
-          -> Smith-Waterman of the candidate pairs on the card (kernel K1)
-          -> profile-side gates, best hit per gene -> genes/taxonomy tables
+The forward profiler (``genomad_torch.tools.profile_forward``) also runs
+K3, the patch reduction without the value projection.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version.

@@ -108,26 +108,54 @@ _INV_LN2_F32 = float(np.float32(1.0 / LN2))
 _LN2_F32 = float(np.float32(LN2))
 _F32_TINY = float(np.finfo(np.float32).tiny)
 
+# The Cephes single-precision exp that XLA compiles jnp.exp to on the CPU:
+# range reduction by a two-part ln 2, then a degree-6 polynomial
+_EXP_LO, _EXP_HI = -87.8, 88.8
+_LOG2E = 1.44269504088896341
+_LN2_HI, _LN2_LO = -0.693359375, 2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 fused multiply-add: the product of two f32 values is exact in
+    f64, the sum is rounded to f32 once (through f64, which gives the same
+    f32 result on every input the gate sees)."""
+    return (a.double() * torch.as_tensor(b, dtype=torch.float32).double() + torch.as_tensor(c, dtype=torch.float32).double()).float()
+
+
+def _exp_f32_xla(x: torch.Tensor) -> torch.Tensor:
+    """exp of an f32 tensor, bit-equal to ``jax.jit(jnp.exp)`` on the CPU
+    (XLA's Cephes polynomial evaluated with fused multiply-adds, the
+    exponent n clamped to [-127, 127] and subnormal results flushed to
+    zero); the same on the CPU and the card."""
+    x = x.float().clamp(_EXP_LO, _EXP_HI)
+    n = torch.floor(_fma_f32(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    a = _fma_f32(n, _LN2_HI, x)
+    a = _fma_f32(n, _LN2_LO, a)
+    z = torch.full_like(a, _EXP_POLY[0])
+    for coeff in _EXP_POLY[1:]:
+        z = _fma_f32(z, a, coeff)
+    z = _fma_f32(z, a * a, a)
+    e = ((1.0 + z).double() * torch.exp2(n.double())).float()  # ldexp: exact in f64, one rounding
+    return torch.where(e < _F32_TINY, torch.zeros_like(e), e)
+
 
 def _gate_ev(score: torch.Tensor, plen: torch.Tensor, ka: torch.Tensor) -> torch.Tensor:
     """float32 align-stage E-value, profile as query:
     E = K * plen * search_space * exp(-lambda * S), from ka_params().
 
-    The operations are those the JAX gate (``protein_search._gate_ev``,
-    ``bits = (ka0 * S - ka1) / LN2; plen * ka2 * exp2(-bits)``) compiles
-    to: ka0 * S - ka1 as one fused multiply-add (exact product in f64, one
-    rounding to f32), times f32(1/ln 2); exp2 as exp of the f32 product
-    with f32(ln 2); (plen * ka2) * exp. The exp itself is taken in f64 and
-    rounded to f32, the same on every device, with subnormal results
-    flushed to zero as XLA does; XLA's f32 exp polynomial may differ from it
-    by one ulp (ROADMAP queue 3).
+    Bit-equal to the JAX gate (``protein_search._gate_ev``,
+    ``bits = (ka0 * S - ka1) / LN2; plen * ka2 * exp2(-bits)``) as XLA
+    compiles it: ka0 * S - ka1 as one fused multiply-add (exact product in
+    f64, one rounding to f32), times f32(1/ln 2); exp2 as exp of the f32
+    product with f32(ln 2), through XLA's own f32 exp polynomial
+    (:func:`_exp_f32_xla`, which flushes subnormal results to zero as XLA
+    does); (plen * ka2) * exp.
     """
     t = (ka[0].double() * score.double() - ka[1].double()).float()
     bits = t * _INV_LN2_F32
     x = (-bits) * _LN2_F32
-    e = torch.exp(x.double()).float()
-    e = torch.where(e < _F32_TINY, torch.zeros_like(e), e)
-    return plen * ka[2] * e
+    return plen * ka[2] * _exp_f32_xla(x)
 
 
 def bitscore(raw_score, lam: float = KA_LAMBDA, k: float = KA_K) -> np.ndarray:

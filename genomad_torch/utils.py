@@ -1,10 +1,14 @@
-"""Runtime utilities: console/logging, file IO and the resume protocol.
+"""Runtime utilities: console/logging, file IO, the resume protocol and math
+primitives.
 
-Copied from ``genomad_tpu/utils.py`` (the parts nn-classification uses);
-behaviour and file formats are unchanged. Reference = apcamargo/genomad
+Copied from ``genomad_tpu/utils.py`` (all but ``check_executables`` and
+``Console.status``, which no module of the port calls); behaviour and file
+formats are unchanged. Reference = apcamargo/genomad
 v1.12.0:
   - compression sniffing / transparent open: genomad/utils.py:126-171
   - md5 + execution-info resume protocol:    genomad/utils.py:216-297
+  - math primitives (logistic / softmax / entropy / specificity / RLE):
+                                             genomad/utils.py:328-384
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from datetime import datetime, timezone
 from enum import Enum, auto
 from pathlib import Path
 from typing import Iterator
+
+import numpy as np
 
 
 class Compression(Enum):
@@ -254,3 +260,61 @@ def output_prefix(input_path: Path) -> str:
     if is_compressed(input_path) != Compression.uncompressed:
         prefix = prefix.rsplit(".", 1)[0]
     return prefix
+
+
+# ---------------------------------------------------------------------------
+# Math primitives (bit-parity with reference genomad/utils.py:328-384)
+# ---------------------------------------------------------------------------
+
+
+def logistic(x, temperature: float = 1.0):
+    return 1 / (1 + np.exp(-np.asarray(x, dtype=np.float64) / temperature))
+
+
+def softmax(x, temperature: float = 1.0, axis: int = 1):
+    x = np.asarray(x) / temperature
+    x_max = np.max(x, axis=axis, keepdims=True)
+    e_x = np.exp(x - x_max)
+    return e_x / np.sum(e_x, axis=axis, keepdims=True)
+
+
+def entropy(x):
+    x = np.asarray(x)
+    n = len(x)
+    if not np.any(x):
+        return np.log2(n)
+    p = x / np.sum(x)
+    p = p[p != 0]
+    return -1 * np.dot(p, np.log2(p))
+
+
+def specificity(x):
+    """Specificity measure (SPM) of a distribution (reference: utils.py:349-357)."""
+    x = np.asarray(x)
+    if not np.any(x):
+        return 0.0
+    n = len(x)
+    if n == 1:
+        return 0.0
+    return (np.log2(n) - entropy(x)) / np.log2(n)
+
+
+def rle_encode(array):
+    """Run-length encode -> (counts, values) (reference: utils.py:360-377)."""
+    counts, values = [], []
+    i, n = 0, len(array)
+    while i < n:
+        j = i
+        while j + 1 < n and array[j + 1] == array[i]:
+            j += 1
+        counts.append(j - i + 1)
+        values.append(array[i])
+        i = j + 1
+    return counts, values
+
+
+def rle_decode(counts, values):
+    decoded = []
+    for c, v in zip(counts, values):
+        decoded += [v] * c
+    return decoded

@@ -23,8 +23,24 @@ for name in names:
 import chip_smoke  # the chip script imports the port only
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "genomad_tpu"))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+# the modules of the third slice (end-to-end), each imported above
+END_TO_END_MODULES = (
+    "genomad_torch.ops.features",
+    "genomad_torch.ops.trna",
+    "genomad_torch.models.forest",
+    "genomad_torch.models.crf",
+    "genomad_torch.models.fusion",
+    "genomad_torch.modules.marker_classification",
+    "genomad_torch.modules.find_proviruses",
+    "genomad_torch.modules.aggregated_classification",
+    "genomad_torch.modules.score_calibration",
+    "genomad_torch.modules.summary",
+    "genomad_torch.modules.download",
+    "genomad_torch.tools.profile_forward",
+)
 
 
 def test_port_modules_import_neither_jax_nor_the_jax_package():
@@ -32,8 +48,10 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
         [sys.executable, "-c", _IMPORT_EVERYTHING], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    # every module of the two slices (nn-classification, annotate) was imported
-    assert int(out.stdout.split()[-1]) >= 29
+    names = out.stdout.split()
+    # every module of the three slices (nn-classification, annotate, end-to-end) was imported
+    assert len(names) >= 29 + len(END_TO_END_MODULES)
+    assert set(END_TO_END_MODULES) <= set(names)
 
 
 def test_no_import_of_jax_in_the_port_sources():

@@ -1,5 +1,5 @@
 """The plain PyTorch versions of the port's kernels (K5 embed_conv, K4
-causal_conv, K2 fused_reduce) against the JAX package: its XLA
+causal_conv, K2 fused_reduce, K3 patch_reduce) against the JAX package: its XLA
 formulations and its Pallas kernels in interpret mode, in float32, and the
 bf16 rounding points of the convs.
 
@@ -109,6 +109,26 @@ def test_fused_reduce_plain_matches_pallas(rng):
     np.testing.assert_allclose(pooled[:, :n].numpy(), np.asarray(pooled_ref)[:, :n], **REDUCE_TOL)
 
 
+def test_patch_reduce_plain_matches_pallas(rng):
+    """K3: the full-size plan of init_params (2,100 patches, L_PAD 6016,
+    C 128) at B=2, f32, against JAX's Pallas ``patch_reduce`` in interpret
+    mode; and the plain K3 mpi is the plain K2 mpi exactly."""
+    params = jig.init_params(seed=5)
+    prepared = jig.prepare_params(params, compute_dtype=jnp.float32)
+    plan = prepared["igloo2_plan"]
+    B = 2
+    y = rng.normal(size=(B, jig.L_PAD, jig.CHANNELS)).astype(np.float32)
+    ref = jpr.patch_reduce(jnp.asarray(y), plan["w_tiles"], plan["onehot"], plan["idx"], interpret=True)
+    ours = tig.params_from_numpy(params, torch.float32)["igloo2"]
+    mpi = patch_reduce.patch_reduce_plain(_t(y), ours["patches"], ours["w_patch"])
+    assert mpi.dtype == torch.float32 and mpi.shape == (B, jig.N_PATCHES)
+    np.testing.assert_allclose(mpi.numpy(), np.asarray(ref), **REDUCE_TOL)
+    for dtype in (torch.float32, torch.bfloat16):
+        yt, wp = _t(y).to(dtype), ours["w_patch"].to(dtype)
+        fused_mpi, _ = patch_reduce.fused_reduce_plain(yt, ours["patches"], wp, ours["w_v"].to(dtype))
+        assert torch.equal(patch_reduce.patch_reduce_plain(yt, ours["patches"], wp), fused_mpi)
+
+
 def test_fused_reduce_plain_ragged_length(rng):
     """A length that is no multiple of the pool: 'valid' pooling drops the tail."""
     B, L, C, P = 3, 61, 8, 5
@@ -134,10 +154,11 @@ def _wrapper_cases(rng):
         "embed_conv": (conv.embed_conv, conv.embed_conv_plain, (tokens, k1, bias)),
         "causal_conv": (conv.causal_conv, conv.causal_conv_plain, (x, k4, bias)),
         "fused_reduce": (patch_reduce.fused_reduce, patch_reduce.fused_reduce_plain, (x, patches, w_patch, k4[0])),
+        "patch_reduce": (patch_reduce.patch_reduce, patch_reduce.patch_reduce_plain, (x, patches, w_patch)),
     }
 
 
-@pytest.mark.parametrize("name", ["embed_conv", "causal_conv", "fused_reduce"])
+@pytest.mark.parametrize("name", ["embed_conv", "causal_conv", "fused_reduce", "patch_reduce"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_tensor_takes_the_plain_version(rng, name, dtype):
     wrapper, plain, args = _wrapper_cases(rng)[name]
@@ -148,3 +169,17 @@ def test_cpu_tensor_takes_the_plain_version(rng, name, dtype):
         assert g.dtype == r.dtype
         torch.testing.assert_close(g, r, rtol=0, atol=0)
     assert wrapper.launches == before  # no kernel launch on the CPU
+
+
+def test_patch_reduce_checks_its_inputs(rng):
+    """K3 makes K2's checks before it launches (here the CPU path is taken
+    first, so the checks are called directly)."""
+    y = torch.zeros((2, 40, 16))
+    patches = torch.zeros((7, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="w_patch must be"):
+        patch_reduce._check(y, patches, torch.zeros((7, 3, 16)))
+    with pytest.raises(ValueError, match="patches must be"):
+        patch_reduce._check(y, patches.long(), torch.zeros((7, 4, 16)))
+    with pytest.raises(ValueError, match="share a float32 or bfloat16"):
+        patch_reduce._check(y, patches, torch.zeros((7, 4, 16), dtype=torch.bfloat16))
+    assert patch_reduce._check(y, patches, torch.zeros((7, 4, 16))) == (2, 40, 16, 7, 4)

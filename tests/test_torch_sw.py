@@ -130,7 +130,8 @@ def test_sw_pairs_plain_matches_jax_gate_and_coverage(rng, integral):
     else:  # XLA compiles the gathered program's f32 sums in another order
         np.testing.assert_allclose(best.numpy(), ref[:, 0], rtol=1e-5)
     ev = tps._gate_ev(best, _t(plen)[idx[1]], _t(ka)).numpy()
-    assert _ulps(ev, ref[:, 3]).max() <= 2
+    # bit-equal on equal scores; a float score a few ulps off moves E by a few ulps
+    assert _ulps(ev, ref[:, 3]).max() <= (0 if integral else 2)
     ends = np.stack([end_i.numpy(), end_j.numpy()])
     cov_ref = np.asarray(jps._sw_rev_cov(
         jnp.asarray(all_q), jnp.asarray(all_p), jnp.asarray(plen), jnp.asarray(idx), jnp.asarray(ends.astype(np.float32))
@@ -187,10 +188,9 @@ def test_sw_pairs_cpu_takes_the_plain_version(rng):
 def test_gate_matches_jax_bits_and_ulp(rng):
     """The port's f32 E-value gate against JAX's ``_gate_ev``. The port
     takes the operations XLA compiles the JAX gate to (a fused
-    multiply-add, then the folded 1/ln 2 and ln 2 multiplies); the E-value
-    agrees within two ulps (XLA's f32 exp polynomial against an exp rounded
-    from f64, then the product's rounding), and so do the gate decisions at
-    fixed thresholds."""
+    multiply-add, the folded 1/ln 2 and ln 2 multiplies, XLA's f32 exp
+    polynomial): every E-value is bit-equal, subnormal results flushed to
+    zero on both sides, and so are the gate decisions at fixed thresholds."""
     score = np.concatenate([np.arange(0, 2500, dtype=np.float32), rng.uniform(0, 2500, 20000).astype(np.float32)])
     plen = rng.integers(30, 1000, len(score)).astype(np.float32)
     for n_gate in (1_000, 98_765_432):
@@ -199,13 +199,24 @@ def test_gate_matches_jax_bits_and_ulp(rng):
         ref = np.asarray(jax.jit(jps._gate_ev)(jnp.asarray(score), jnp.asarray(plen), jnp.asarray(ka)))
         got = tps._gate_ev(_t(score), _t(plen), _t(ka)).numpy()
         assert got.dtype == np.float32
-        normal = ref >= np.finfo(np.float32).tiny  # XLA flushes subnormal results to zero
-        # one ulp of exp, carried through the last f32 multiply's rounding
-        assert _ulps(got, ref)[normal].max() <= 2
-        np.testing.assert_array_equal(got[~normal], ref[~normal])  # both flush to zero
+        assert _ulps(got, ref).max() == 0
+        assert not ((got > 0) & (got < np.finfo(np.float32).tiny)).any()  # no subnormal survives
         # threshold decisions at the production and a harsh gate
         for thr in (1e-3, 1e-12):
             np.testing.assert_array_equal(got <= np.float32(thr), ref <= np.float32(thr))
+
+
+def test_exp_helper_matches_xla_exp_bits(rng):
+    """The gate's f32 exp against ``jax.jit(jnp.exp)`` on 1.2M f32 values
+    over the whole clamp range [-87.8, 88.8], its ends included: bit-equal
+    (both flush subnormal results to zero)."""
+    x = np.concatenate([
+        rng.uniform(-87.8, 88.8, 700_000), np.linspace(-87.8, 88.8, 500_001), [-87.8, 88.8, 0.0, 88.7228],
+    ]).astype(np.float32)
+    ref = np.asarray(jax.jit(jnp.exp)(jnp.asarray(x)))
+    got = tps._exp_f32_xla(_t(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
 
 
 def test_calibrate_db_equals_jax():
