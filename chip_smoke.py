@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``genomad_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout, one card
+    python3 chip_smoke.py                  # from the root of a checkout, one card
+    python3 chip_smoke.py --only kernels   # device, build and the kernel phase only
 
-Phases (any failure makes the script exit non-zero without the final line):
+Phases (any failure makes the script exit non-zero without the final line).
+``--only PHASE[,PHASE]`` runs device and build, the named phases and those
+they read from (main and forward read the kernel table; end-to-end reads
+kernels, sw and annotate): the quick check of a kernel change. It exits 0
+when those phases pass and never prints the kernel table or the final line:
+only the full run, with no arguments, does.
 
 1. device   - requires CUDA; prints the card's name and power limit.
 2. build    - compiles every kernel of ``genomad_torch/csrc`` with nvcc,
@@ -13,8 +19,10 @@ Phases (any failure makes the script exit non-zero without the final line):
               path's shapes (B=128, L=6016, C=128, full-size synthetic
               weights, tokens from random DNA with N runs) in bf16 and in
               f32 (TF32 off), and at a ragged shape (K3's mpi bit-equal to
-              K2's); times kernel, plain version and the PyTorch library
-              call that computes the same function, beside the card's bound.
+              K2's); K4 also at the edges of its persistent schedule (B=1
+              L=70, B=133 L=6016, L=5) and bit-equal to itself on a rerun;
+              times kernel, plain version and the PyTorch library call that
+              computes the same function, beside the card's bound.
 4. sw       - holds K1 sw_pairs (Smith-Waterman) bit for bit against its
               plain version: the annotate path's buckets (Lq = Lp = 256 and
               384, N = 4096 pairs from an integral 20,000-profile DB staged
@@ -54,6 +62,7 @@ Prints the kernel table as one JSON line ({"kernels": [...]}), the
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -236,9 +245,25 @@ def kernel_phase(results: dict) -> None:
         max_err(patch_reduce.patch_reduce(xc, patches, wc), patch_reduce.patch_reduce_plain(xc, patches, wc), torch.float32)
     log("# ragged B=3 L=1001: all kernels agree with their plain versions (f32, bf16); K3 also at C=40")
 
+    # K4's persistent schedule (tiles of 64 rows, two per block and round,
+    # one block per SM) at its edges, bf16: one tile plus a ragged one; a
+    # tile count that is no multiple of the grid; a sequence shorter than
+    # the halo
+    h1, k2, b2 = entries["causal_conv"]["args"]
+    for Be, Le in ((1, 70), (133, L), (4, 5)):
+        x = torch.from_numpy(rng.normal(0, 1, (Be, Le, C)).astype(np.float32)).to(dev, torch.bfloat16)
+        e = max(
+            max_err(conv.causal_conv(x, k2, b2, leaky), conv.causal_conv_plain(x, k2, b2, leaky), torch.bfloat16)
+            for leaky in (True, False)
+        )
+        log(f"# K4 edge B={Be} L={Le}: {e:.3g} (bf16, with and without LeakyReLU)")
+    first, again = conv.causal_conv(h1, k2, b2), conv.causal_conv(h1, k2, b2)
+    if not torch.equal(first, again):
+        raise AssertionError(f"K4 rerun differs from the first run in {int((first != again).sum())} values")
+    log(f"# K4 rerun at B={B} L={L}: bit-equal")
+
     # timings at the main path's shapes, bf16
     tok, k1, b1 = entries["embed_conv"]["args"]
-    h1, k2, b2 = entries["causal_conv"]["args"]
     y, patches, w_patch, w_v = entries["fused_reduce"]["args"]
     V = k1.shape[1]
     # library yardsticks (timed only here; the port never calls them)
@@ -1420,7 +1445,36 @@ def card_vs_cpu_phase(workdir: Path) -> dict:
     return summary
 
 
-def main() -> int:
+PHASES = ("kernels", "sw", "main", "forward", "annotate", "end-to-end", "card-vs-cpu", "search")
+# what a phase reads from the phases before it: the kernel table (launches
+# per batch, the rows the later phases fill in) and annotate's DB directory
+REQUIRES = {
+    "main": ("kernels",),
+    "forward": ("kernels",),
+    "end-to-end": ("kernels", "sw", "annotate"),
+}
+
+
+def select_phases(argv: list[str]) -> tuple[str, ...]:
+    """The phases a run takes after device and build: every phase with no
+    arguments; with ``--only PHASE[,PHASE]`` the named ones and those they
+    read from, in the script's order. Raises ValueError on an unknown name."""
+    parser = argparse.ArgumentParser(description="Smoke run of genomad_torch on one NVIDIA GPU.")
+    parser.add_argument("--only", metavar="PHASE[,PHASE]", help=f"run only these of {', '.join(PHASES)}")
+    args = parser.parse_args(argv)
+    if args.only is None:
+        return PHASES
+    names = {n.strip() for n in args.only.split(",") if n.strip()}
+    unknown = sorted(names - set(PHASES))
+    if unknown or not names:
+        raise ValueError(f"--only takes phases of {PHASES}, got {args.only!r}")
+    for name in list(names):
+        names.update(REQUIRES.get(name, ()))
+    return tuple(p for p in PHASES if p in names)
+
+
+def main(argv: list[str] | None = None) -> int:
+    phases = select_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.", file=sys.stderr)
         return 1
@@ -1441,73 +1495,50 @@ def main() -> int:
         log(f"# build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (already built)'}")
         for name, out in logs.items():
             for line in out.splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "wgmma" in line:
                     log(f"#   {name}: {line.strip()}")
     except Exception:  # noqa: BLE001
         failures.append("build")
         traceback.print_exc()
 
     results: dict = {}
-    if not failures:
-        try:
-            kernel_phase(results)
-        except Exception:  # noqa: BLE001
-            failures.append("kernels")
-            traceback.print_exc()
     db = None
-    if not failures:
-        try:
-            t0 = time.perf_counter()
-            db = bench_db(SW_DB_PROFILES)
-            log(f"# {SW_DB_PROFILES}-profile integral DB built in {time.perf_counter() - t0:.1f} s")
-            sw_kernel_phase(results, db)
-        except Exception:  # noqa: BLE001
-            failures.append("sw")
-            traceback.print_exc()
-    if not failures:
-        try:
-            with tempfile.TemporaryDirectory(prefix="genomad_torch_smoke_") as tmp:
-                main_path_phase(results, Path(tmp), smi)
-        except Exception:  # noqa: BLE001
-            failures.append("main")
-            traceback.print_exc()
-    if not failures:
-        try:
-            forward_phase(results)
-        except Exception:  # noqa: BLE001
-            failures.append("forward")
-            traceback.print_exc()
-    if not failures:
-        with tempfile.TemporaryDirectory(prefix="genomad_torch_annotate_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="genomad_torch_smoke_") as tmp:
+        tmp = Path(tmp)
+        for sub in ("main", "annotate", "card_cpu"):
+            (tmp / sub).mkdir()
+        runs = {
+            "kernels": lambda: kernel_phase(results),
+            "sw": lambda: sw_kernel_phase(results, db),
+            "main": lambda: main_path_phase(results, tmp / "main", smi),
+            "forward": lambda: forward_phase(results),
+            "annotate": lambda: annotate_phase(results, tmp / "annotate", db),
+            # on annotate's DB directory
+            "end-to-end": lambda: end_to_end_phase(results, tmp / "annotate", db),
+            "card-vs-cpu": lambda: card_vs_cpu_phase(tmp / "card_cpu"),
+            "search": real_db_phase,
+        }
+        for name in phases:
+            if failures:
+                break
             try:
-                annotate_phase(results, Path(tmp), db)
+                if name in ("sw", "annotate") and db is None:
+                    t0 = time.perf_counter()
+                    db = bench_db(SW_DB_PROFILES)
+                    log(f"# {SW_DB_PROFILES}-profile integral DB built in {time.perf_counter() - t0:.1f} s")
+                if name == "card-vs-cpu":
+                    db = None  # the later phases build their own DBs
+                runs[name]()
             except Exception:  # noqa: BLE001
-                failures.append("annotate")
+                failures.append(name)
                 traceback.print_exc()
-            if not failures:
-                try:
-                    end_to_end_phase(results, Path(tmp), db)
-                except Exception:  # noqa: BLE001
-                    failures.append("end-to-end")
-                    traceback.print_exc()
-    del db
-    if not failures:
-        try:
-            with tempfile.TemporaryDirectory(prefix="genomad_torch_card_cpu_") as tmp:
-                card_vs_cpu_phase(Path(tmp))
-        except Exception:  # noqa: BLE001
-            failures.append("card-vs-cpu")
-            traceback.print_exc()
-    if not failures:
-        try:
-            real_db_phase()
-        except Exception:  # noqa: BLE001
-            failures.append("search")
-            traceback.print_exc()
 
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
+    if phases != PHASES:
+        log(f"# --only: phases {list(phases)} passed (the full run alone prints the kernel table and the ok line)")
+        return 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(smi)

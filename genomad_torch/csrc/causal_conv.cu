@@ -5,114 +5,208 @@
 //
 // Replaces genomad_tpu/ops/conv_pallas.py `causal_conv` (`_conv_kernel`).
 //
-// What bounds it on an H100: operations. At B=128, L=6016, C=128 it is
-// 2*6*128^2*L*B = 151 GFLOP (0.15 ms at 989 TFLOP/s in bf16) against 394 MB
-// of reads and writes (0.12 ms at 3.35 TB/s), so it needs the tensor cores.
+// What bounds it on an H100: operations. At B=128, L=6016, C=128 it is one
+// GEMM of M = B*L = 770,048 rows, N = 128, K = 6*128 = 768: 151 GFLOP, 0.153
+// ms at 989 TFLOP/s in bf16, against 394 MB of x read and out written (0.118
+// ms at 3.35 TB/s). So the tensor cores must stay fed, and W, the same for
+// every row, must not be fetched again for every tile.
 //
-// Design (bf16): one block per (tile of TL=128 positions, batch row) holds
-// the x rows t0-5 .. t0+TL-1 in shared memory (zero rows before t=0 and
-// past L), so the 5-row causal halo is read from device memory once per
-// tile instead of carried across a sequential grid as on the TPU. The six
-// taps run as bf16 tensor-core products (WMMA 16x16x16, f32 accumulation):
-// each of the 8 warps owns 16 output rows x all 128 channels, and W[k]
-// (32 KB) is streamed through shared memory one tap at a time. The f32
-// accumulators are staged through shared memory for a coalesced epilogue
-// (bias, LeakyReLU, rounding as in the JAX graph). wgmma/TMA pipelining is
-// left for a later change.
+// Design (bf16, C = 128): a persistent grid of one block per SM. A block
+// holds all six taps of W in shared memory for its whole life (196,608 B,
+// loaded once) and walks tiles of TM = 64 output rows of one sequence. Its
+// two consumer warpgroups take alternate tiles, each with its own x buffer
+// of the tile's 64 rows plus the 5-row causal halo (17,664 B), so one
+// warpgroup's epilogue and next load overlap the other's products:
+//   196,608 (W) + 2 x 17,664 (x) = 231,936 of the 232,448 B a block may use.
+// Each tile is 48 `wgmma.mma_async` m64n128k16 (6 taps x 8 k steps of 16
+// channels), f32 accumulators in registers (64 per thread), both operands
+// read from shared memory through descriptors:
+//  - x is stored without swizzle as xs[channel/8][row] in 16-byte cells, so
+//    a core matrix (8 rows x 8 channels) is 128 contiguous bytes at any row.
+//    The A operand of tap k is the buffer shifted down by k rows: its
+//    descriptor starts k * 16 bytes later. (The 128B-swizzled layout repeats
+//    every 8 rows and cannot start 1-5 rows in.) The buffer's 69 rows are
+//    odd, so 8 cells of consecutive channels fall in 8 different bank groups
+//    as they are written.
+//  - W[k] (C_in x C_out, C_out contiguous) is an MN-major B operand, read
+//    with the transpose flag, stored without swizzle in core matrices of 8
+//    input x 8 output channels, copied in 16-byte cells as stored in memory.
+// x tiles come in by cp.async with zero fill for rows before t = 0 and past
+// L; a warpgroup issues its next tile's load as soon as its products are
+// done, before its epilogue. The epilogue runs from registers: the JAX
+// rounding points (gt::conv_epilogue), bf16x2 stores, rows past L masked.
+// Each output element is one warpgroup's fixed sequence of products: no
+// atomics, a rerun is bit-equal.
 //
-// Design (f32, parity runs): the same tiling on the CUDA cores in full f32,
-// one thread per output channel holding TLF accumulators.
+// Design (f32, parity runs): one block per (tile of TLF positions, batch
+// row) on the CUDA cores in full f32, one thread per output channel holding
+// TLF accumulators.
 //
 // Takes f32 (parity) and bf16 (production); accumulates in f32.
 
-#include <mma.h>
+#include <algorithm>
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int KS = 6;
 constexpr int HALO = KS - 1;
 
-// ---- bf16 tensor-core path (C fixed at the model's 128 channels) ----
+// ---- bf16 path (C fixed at the model's 128 channels) ----
 constexpr int C = 128;
-constexpr int TL = 128;
-constexpr int XROWS = TL + HALO;
-constexpr int LDX = C + 16;  // 288-byte rows: every fragment pointer stays 32-byte aligned
-constexpr int LDW = C + 16;
-constexpr int LDO = C + 4;
-constexpr int WARPS = TL / 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int VPR = C / 8;  // 16-byte vectors per row
-constexpr size_t SMEM_BF16 = (size_t)(XROWS * LDX + C * LDW) * sizeof(gt::bf16);
-static_assert((size_t)TL * LDO * sizeof(float) <= SMEM_BF16, "f32 staging reuses the operand tiles");
-static_assert((XROWS * LDX * sizeof(gt::bf16)) % 32 == 0, "W tile stays 32-byte aligned");
+constexpr int TM = 64;                    // output rows per tile (one wgmma M)
+constexpr int XROWS = TM + HALO;          // 69 rows per x buffer
+constexpr int CELL = 16;                  // bytes of 8 bf16 channels
+constexpr int KC = C / 8;                 // 16 cells per row
+constexpr int W_TAP_BYTES = C * C * 2;    // 32,768
+constexpr int W_BYTES = KS * W_TAP_BYTES; // 196,608
+constexpr int X_BYTES = KC * XROWS * CELL;  // 17,664
+constexpr int CONSUMERS = 2;              // warpgroups, one x buffer each
+constexpr int THREADS = CONSUMERS * 128;
+constexpr size_t SMEM_BF16 = (size_t)W_BYTES + CONSUMERS * X_BYTES;  // 231,936
+static_assert(SMEM_BF16 <= 232448, "a block may use 227 KB of shared memory");
+// W in shared memory: tap k, core matrix (ci/8, co/8), row ci%8 of 16 bytes
+constexpr int W_LBO = KC * 128;  // next 8 input channels (K direction)
+constexpr int W_SBO = 128;       // next 8 output channels (N direction)
+// x in shared memory: cell (channel/8, row) at (channel/8 * XROWS + row) * 16
+constexpr int X_LBO = XROWS * CELL;  // next 8 channels (K direction)
+constexpr int X_SBO = 8 * CELL;      // next 8 rows (M direction)
 
-__global__ void __launch_bounds__(THREADS) causal_conv_bf16(
-    const gt::bf16* __restrict__ x, const gt::bf16* __restrict__ w, const gt::bf16* __restrict__ bias,
-    gt::bf16* __restrict__ out, int L, float slope, int leaky) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    gt::bf16* xs = reinterpret_cast<gt::bf16*>(smem);
-    gt::bf16* ws = xs + XROWS * LDX;
-    float* os = reinterpret_cast<float*>(smem);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-    const int b = blockIdx.y;
-    const int t0 = blockIdx.x * TL;
+// wgmma shared-memory descriptor, no swizzle: start, leading (K) and stride
+// (M/N) byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_barrier(int wg) { asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory"); }
+
+// d += A (64 x 16, K-major) @ B (16 x 128, MN-major), or d = A @ B when !accumulate
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// one warpgroup's 128 threads copy the x rows t0-5 .. t0+63 of sequence b
+// into its buffer, zero-filled before t = 0 and past L
+__device__ __forceinline__ void load_x(uint32_t xs, const gt::bf16* __restrict__ x, int tile, int tiles_per_seq,
+                                       int L, int t) {
+    const int b = tile / tiles_per_seq;
+    const int t0 = (tile - b * tiles_per_seq) * TM;
     const gt::bf16* xb = x + (size_t)b * L * C;
-    for (int i = threadIdx.x; i < XROWS * VPR; i += THREADS) {
-        const int r = i / VPR;
-        const int v = i - r * VPR;
-        const int t = t0 - HALO + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (t >= 0 && t < L) val = *reinterpret_cast<const uint4*>(xb + (size_t)t * C + v * 8);
-        *reinterpret_cast<uint4*>(xs + r * LDX + v * 8) = val;
+    for (int i = t; i < XROWS * KC; i += 128) {
+        const int row = i / KC;
+        const int kc = i - row * KC;
+        const int pos = t0 - HALO + row;
+        const bool valid = pos >= 0 && pos < L;
+        cp_async16(xs + (kc * XROWS + row) * CELL, valid ? xb + (size_t)pos * C + kc * 8 : x, valid);
     }
+}
 
-    const int warp = threadIdx.x >> 5;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[C / 16];
+__global__ void __launch_bounds__(THREADS, 1) causal_conv_bf16(
+    const gt::bf16* __restrict__ x, const gt::bf16* __restrict__ w, const gt::bf16* __restrict__ bias,
+    gt::bf16* __restrict__ out, int L, int tiles, int tiles_per_seq, float slope, int leaky) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const uint32_t ws = smem_addr(smem);
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const uint32_t xs = ws + W_BYTES + wg * X_BYTES;
+
+    // W once per block: global cell i = (k*C + ci)*KC + co/8
+    for (int i = threadIdx.x; i < KS * C * KC; i += THREADS) {
+        const int cc = i % KC;
+        const int ci = (i / KC) % C;
+        const int k = i / (KC * C);
+        cp_async16(ws + k * W_TAP_BYTES + (ci / 8) * W_LBO + cc * W_SBO + (ci % 8) * CELL, w + (size_t)i * 8, true);
+    }
+    const int stride = gridDim.x * CONSUMERS;
+    int tile = blockIdx.x * CONSUMERS + wg;
+    if (tile < tiles) load_x(xs, x, tile, tiles_per_seq, L, t);
+    cp_async_commit();
+
+    // this thread's output columns: 8j + 2(lane%4) + {0, 1}, j < 16
+    const int lane = t % 32;
+    const int row_in_tile = (t / 32) * 16 + lane / 4;
+    float bias_f[32];
 #pragma unroll
-    for (int j = 0; j < C / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+    for (int j = 0; j < 16; ++j) {
+        bias_f[2 * j] = gt::to_float(bias[8 * j + 2 * (lane % 4)]);
+        bias_f[2 * j + 1] = gt::to_float(bias[8 * j + 2 * (lane % 4) + 1]);
+    }
+    cp_async_wait_all();
+    fence_async_shared();
+    __syncthreads();  // W is in for both warpgroups
 
-    for (int k = 0; k < KS; ++k) {
-        __syncthreads();  // x tile is in; the previous tap's reads of ws are done
-        const gt::bf16* wk = w + (size_t)k * C * C;
-        for (int i = threadIdx.x; i < C * VPR; i += THREADS) {
-            const int r = i / VPR;
-            const int v = i - r * VPR;
-            *reinterpret_cast<uint4*>(ws + r * LDW + v * 8) =
-                *reinterpret_cast<const uint4*>(wk + (size_t)r * C + v * 8);
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    for (; tile < tiles; tile += stride) {
+        cp_async_wait_all();
+        fence_async_shared();
+        wg_barrier(wg);  // the tile's x rows are in
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int k = 0; k < KS; ++k) {
+#pragma unroll
+            for (int kk = 0; kk < C / 16; ++kk) {
+                const uint64_t da = desc(xs + 2 * kk * X_LBO + k * CELL, X_LBO, X_SBO);
+                const uint64_t db = desc(ws + k * W_TAP_BYTES + 2 * kk * W_LBO, W_LBO, W_SBO);
+                wgmma_m64n128k16(d, da, db, k | kk);
+            }
         }
-        __syncthreads();
-#pragma unroll 2
-        for (int kk = 0; kk < C / 16; ++kk) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, gt::bf16, wmma::row_major> a;
-            // output rows warp*16.. read x rows (warp*16 + k).. of the tile (tap k)
-            wmma::load_matrix_sync(a, xs + (warp * 16 + k) * LDX + kk * 16, LDX);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        wg_barrier(wg);  // every warp's products are done: the buffer is free
+        if (tile + stride < tiles) load_x(xs, x, tile + stride, tiles_per_seq, L, t);
+        cp_async_commit();
+
+        const int b = tile / tiles_per_seq;
+        const int t0 = (tile - b * tiles_per_seq) * TM;
 #pragma unroll
-            for (int j = 0; j < C / 16; ++j) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, gt::bf16, wmma::row_major> bm;
-                wmma::load_matrix_sync(bm, ws + kk * 16 * LDW + j * 16, LDW);
-                wmma::mma_sync(acc[j], a, bm, acc[j]);
+        for (int half = 0; half < 2; ++half) {
+            const int pos = t0 + row_in_tile + 8 * half;
+            if (pos >= L) continue;
+            gt::bf16* orow = out + ((size_t)b * L + pos) * C + 2 * (lane % 4);
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                const float v0 = gt::conv_epilogue<gt::bf16>(d[4 * j + 2 * half], bias_f[2 * j], slope, leaky);
+                const float v1 = gt::conv_epilogue<gt::bf16>(d[4 * j + 2 * half + 1], bias_f[2 * j + 1], slope, leaky);
+                *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(v0, v1);
             }
         }
     }
-    __syncthreads();  // operand tiles are dead; reuse them as f32 staging
-#pragma unroll
-    for (int j = 0; j < C / 16; ++j)
-        wmma::store_matrix_sync(os + warp * 16 * LDO + j * 16, acc[j], LDO, wmma::mem_row_major);
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < TL * (C / 2); i += THREADS) {
-        const int r = i / (C / 2);
-        const int c = (i - r * (C / 2)) * 2;
-        const int t = t0 + r;
-        if (t >= L) break;
-        const float v0 = gt::conv_epilogue<gt::bf16>(os[r * LDO + c], gt::to_float(bias[c]), slope, leaky);
-        const float v1 = gt::conv_epilogue<gt::bf16>(os[r * LDO + c + 1], gt::to_float(bias[c + 1]), slope, leaky);
-        *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * L + t) * C + c) = __floats2bfloat162_rn(v0, v1);
-    }
+    cp_async_wait_all();
 }
 
 // ---- f32 path (parity runs; any C with (TLF + HALO) * C floats <= 48 KB) ----
@@ -160,13 +254,20 @@ extern "C" int causal_conv_launch(const void* x, const void* w, const void* bias
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_bf16) {
         if (Cin != C) return static_cast<int>(cudaErrorInvalidValue);
-        cudaError_t err = cudaFuncSetAttribute(causal_conv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(SMEM_BF16));
+        int dev = 0, sms = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(causal_conv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(SMEM_BF16));
         if (err != cudaSuccess) return static_cast<int>(err);
-        const dim3 grid((L + TL - 1) / TL, B);
-        causal_conv_bf16<<<grid, THREADS, SMEM_BF16, s>>>(
-            static_cast<const gt::bf16*>(x), static_cast<const gt::bf16*>(w),
-            static_cast<const gt::bf16*>(bias), static_cast<gt::bf16*>(out), L, slope, leaky);
+        const int tiles_per_seq = (L + TM - 1) / TM;
+        const long long tiles = (long long)B * tiles_per_seq;
+        if (tiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+        const int blocks = static_cast<int>(std::min<long long>(sms, (tiles + CONSUMERS - 1) / CONSUMERS));
+        causal_conv_bf16<<<blocks, THREADS, SMEM_BF16, s>>>(
+            static_cast<const gt::bf16*>(x), static_cast<const gt::bf16*>(w), static_cast<const gt::bf16*>(bias),
+            static_cast<gt::bf16*>(out), L, static_cast<int>(tiles), tiles_per_seq, slope, leaky);
     } else {
         const size_t smem = (size_t)(TLF + HALO) * Cin * sizeof(float);
         if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);

@@ -129,16 +129,7 @@ def causal_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, apply
     """
     if not _build.on_cuda(x, kernel, bias):
         return causal_conv_plain(x, kernel, bias, apply_leaky)
-    _build.require(x.dim() == 3, "x must be (B, L, C)")
-    B, L, C = x.shape
-    _build.require(kernel.shape == (K_SIZE, C, C), "kernel must be (6, C, C)")
-    _build.require(bias.shape == (C,), "bias must be (C,)")
-    _build.require(x.dtype in _build.DTYPES and kernel.dtype == x.dtype and bias.dtype == x.dtype, "x/kernel/bias must share a float32 or bfloat16 dtype")
-    _build.require(all(t.is_contiguous() for t in (x, kernel, bias)), "inputs must be contiguous")
-    if x.dtype == torch.bfloat16:
-        _build.require(C == _build.TC_CHANNELS, f"the bf16 kernel takes C = {_build.TC_CHANNELS}")
-    else:
-        _build.require((32 + HALO) * C * 4 <= 48 * 1024, "the f32 kernel takes C <= 332")
+    B, L, C = _check(x, kernel, bias)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -155,3 +146,18 @@ def causal_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, apply
 
 
 causal_conv.launches = 0
+
+
+def _check(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> tuple[int, int, int]:
+    """The checks K4 makes before it launches: returns (B, L, C)."""
+    _build.require(x.dim() == 3, "x must be (B, L, C)")
+    B, L, C = x.shape
+    _build.require(kernel.shape == (K_SIZE, C, C), "kernel must be (6, C, C)")
+    _build.require(bias.shape == (C,), "bias must be (C,)")
+    _build.require(x.dtype in _build.DTYPES and kernel.dtype == x.dtype and bias.dtype == x.dtype, "x/kernel/bias must share a float32 or bfloat16 dtype")
+    _build.require(all(t.is_contiguous() for t in (x, kernel, bias)), "inputs must be contiguous")
+    if x.dtype == torch.bfloat16:
+        _build.require(C == _build.TC_CHANNELS, f"the bf16 kernel takes C = {_build.TC_CHANNELS}")
+    else:
+        _build.require((32 + HALO) * C * 4 <= 48 * 1024, "the f32 kernel takes C <= 332")
+    return B, L, C

@@ -183,3 +183,31 @@ def test_patch_reduce_checks_its_inputs(rng):
     with pytest.raises(ValueError, match="share a float32 or bfloat16"):
         patch_reduce._check(y, patches, torch.zeros((7, 4, 16), dtype=torch.bfloat16))
     assert patch_reduce._check(y, patches, torch.zeros((7, 4, 16))) == (2, 40, 16, 7, 4)
+
+
+def _k4_inputs(C=16, dtype=torch.float32):
+    return torch.zeros((2, 40, C), dtype=dtype), torch.zeros((6, C, C), dtype=dtype), torch.zeros(C, dtype=dtype)
+
+
+@pytest.mark.parametrize(
+    "case, match",
+    [
+        (lambda: _k4_inputs(C=64, dtype=torch.bfloat16), "bf16 kernel takes C = 128"),
+        (lambda: (*_k4_inputs()[:2], torch.zeros(16, dtype=torch.bfloat16)), "share a float32 or bfloat16"),
+        (lambda: (_k4_inputs()[0].transpose(0, 1), *_k4_inputs()[1:]), "must be contiguous"),
+        (lambda: (_k4_inputs()[0], torch.zeros((5, 16, 16)), _k4_inputs()[2]), r"must be \(6, C, C\)"),
+        (lambda: (_k4_inputs()[0], torch.zeros((6, 16, 8)), _k4_inputs()[2]), r"must be \(6, C, C\)"),
+    ],
+    ids=["bf16-C64", "mixed-dtypes", "non-contiguous-x", "five-taps", "not-square"],
+)
+def test_causal_conv_checks_its_inputs(case, match):
+    """K4 makes these checks before it launches and raises on what the kernel
+    does not take (here the CPU path is taken first, so the checks are
+    called directly)."""
+    with pytest.raises(ValueError, match=match):
+        conv._check(*case())
+
+
+def test_causal_conv_check_passes_what_the_kernel_takes():
+    assert conv._check(*_k4_inputs(C=128, dtype=torch.bfloat16)) == (2, 40, 128)
+    assert conv._check(*_k4_inputs(C=332)) == (2, 40, 332)
