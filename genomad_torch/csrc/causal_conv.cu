@@ -33,10 +33,14 @@
 //    input x 8 output channels, copied in 16-byte cells as stored in memory.
 // x tiles come in by cp.async with zero fill for rows before t = 0 and past
 // L; a warpgroup issues its next tile's load as soon as its products are
-// done, before its epilogue. The epilogue runs from registers: the JAX
-// rounding points (gt::conv_epilogue), bf16x2 stores, rows past L masked.
-// Each output element is one warpgroup's fixed sequence of products: no
-// atomics, a rerun is bit-equal.
+// done, before its epilogue. (No TMA or producer warp: TMA into this layout
+// moves 16-byte rows, and on the card the loads are not what holds the
+// kernel back; PERF.md, PR 5.) The warpgroups take turns to issue their
+// products, so one's epilogue runs while the other's products run. The
+// epilogue works from registers in bf16x2 with the JAX rounding points of
+// gt::conv_epilogue, then a quad transpose gives each lane 16 contiguous
+// bytes to store; rows past L are masked. Each output element is one
+// warpgroup's fixed sequence of products: no atomics, a rerun is bit-equal.
 //
 // Design (f32, parity runs): one block per (tile of TLF positions, batch
 // row) on the CUDA cores in full f32, one thread per output channel holding
@@ -92,6 +96,9 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 __device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_barrier(int wg) { asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory"); }
+// the turn to issue products passes between the two warpgroups (barriers 3, 4)
+__device__ __forceinline__ void wait_turn(int wg) { asm volatile("bar.sync %0, 256;\n" ::"r"(wg + 3) : "memory"); }
+__device__ __forceinline__ void pass_turn(int wg) { asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory"); }
 
 // d += A (64 x 16, K-major) @ B (16 x 128, MN-major), or d = A @ B when !accumulate
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
@@ -134,6 +141,36 @@ __device__ __forceinline__ void load_x(uint32_t xs, const gt::bf16* __restrict__
     }
 }
 
+// 4x4 transpose of 32-bit words across the 4 lanes of a quad: lane q's
+// a[s] becomes lane s's a[q]
+__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int q) {
+#pragma unroll
+    for (int bit = 1; bit <= 2; bit <<= 1) {
+        const bool upper = q & bit;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if (i & bit) continue;
+            const uint32_t recv = __shfl_xor_sync(0xffffffffu, upper ? a[i] : a[i + bit], bit);
+            if (upper)
+                a[i] = recv;
+            else
+                a[i + bit] = recv;
+        }
+    }
+}
+
+// gt::conv_epilogue on two columns at once, in bf16x2: the f32 sums rounded
+// to bf16, the bias added in bf16 (one rounding of the exact sum, as the
+// f32 add of two bf16 values then rounded to bf16 gives), LeakyReLU as
+// max(v, v * slope) in bf16, which is where(v >= 0, v, v * slope) for a
+// slope in [0, 1], NaN included
+__device__ __forceinline__ uint32_t epilogue_bf16x2(float lo, float hi, __nv_bfloat162 bias2, __nv_bfloat162 slope2,
+                                                    int leaky) {
+    __nv_bfloat162 v = __hadd2(__floats2bfloat162_rn(lo, hi), bias2);
+    if (leaky) v = __hmax2_nan(v, __hmul2(v, slope2));
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 __global__ void __launch_bounds__(THREADS, 1) causal_conv_bf16(
     const gt::bf16* __restrict__ x, const gt::bf16* __restrict__ w, const gt::bf16* __restrict__ bias,
     gt::bf16* __restrict__ out, int L, int tiles, int tiles_per_seq, float slope, int leaky) {
@@ -158,12 +195,10 @@ __global__ void __launch_bounds__(THREADS, 1) causal_conv_bf16(
     // this thread's output columns: 8j + 2(lane%4) + {0, 1}, j < 16
     const int lane = t % 32;
     const int row_in_tile = (t / 32) * 16 + lane / 4;
-    float bias_f[32];
+    __nv_bfloat162 bias2[16];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-        bias_f[2 * j] = gt::to_float(bias[8 * j + 2 * (lane % 4)]);
-        bias_f[2 * j + 1] = gt::to_float(bias[8 * j + 2 * (lane % 4) + 1]);
-    }
+    for (int j = 0; j < 16; ++j) bias2[j] = *reinterpret_cast<const __nv_bfloat162*>(bias + 8 * j + 2 * (lane % 4));
+    const __nv_bfloat162 slope2 = __float2bfloat162_rn(slope);
     cp_async_wait_all();
     fence_async_shared();
     __syncthreads();  // W is in for both warpgroups
@@ -175,6 +210,10 @@ __global__ void __launch_bounds__(THREADS, 1) causal_conv_bf16(
         cp_async_wait_all();
         fence_async_shared();
         wg_barrier(wg);  // the tile's x rows are in
+        // the warpgroups take turns to issue a tile's products (warpgroup 0
+        // first), so one's run on the tensor cores while the other's
+        // epilogue runs, instead of both running at half speed side by side
+        if (wg == 1 || tile >= stride) wait_turn(wg);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int k = 0; k < KS; ++k) {
@@ -186,23 +225,33 @@ __global__ void __launch_bounds__(THREADS, 1) causal_conv_bf16(
             }
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // pass the turn when the other warpgroup has a tile to take it for
+        if (wg == 0 ? tile + 1 < tiles : tile - 1 + stride < tiles) pass_turn(wg);
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         wg_barrier(wg);  // every warp's products are done: the buffer is free
         if (tile + stride < tiles) load_x(xs, x, tile + stride, tiles_per_seq, L, t);
         cp_async_commit();
 
+        // epilogue: lane q of a quad holds columns 8j + 2q, +1 of its two
+        // rows; a quad transpose gives each lane 8 whole columns (16 bytes)
+        // of 4 column blocks, so a warp writes 64 contiguous bytes per row
         const int b = tile / tiles_per_seq;
         const int t0 = (tile - b * tiles_per_seq) * TM;
+        const int q = lane % 4;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             const int pos = t0 + row_in_tile + 8 * half;
-            if (pos >= L) continue;
-            gt::bf16* orow = out + ((size_t)b * L + pos) * C + 2 * (lane % 4);
+            gt::bf16* orow = out + ((size_t)b * L + pos) * C;
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
-                const float v0 = gt::conv_epilogue<gt::bf16>(d[4 * j + 2 * half], bias_f[2 * j], slope, leaky);
-                const float v1 = gt::conv_epilogue<gt::bf16>(d[4 * j + 2 * half + 1], bias_f[2 * j + 1], slope, leaky);
-                *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(v0, v1);
+            for (int m = 0; m < 4; ++m) {
+                uint32_t a[4];
+#pragma unroll
+                for (int jj = 0; jj < 4; ++jj) {
+                    const int j = 4 * m + jj;
+                    a[jj] = epilogue_bf16x2(d[4 * j + 2 * half], d[4 * j + 2 * half + 1], bias2[j], slope2, leaky);
+                }
+                quad_transpose(a, q);
+                if (pos < L) *reinterpret_cast<uint4*>(orow + 8 * (4 * m + q)) = make_uint4(a[0], a[1], a[2], a[3]);
             }
         }
     }

@@ -211,3 +211,18 @@ def test_causal_conv_checks_its_inputs(case, match):
 def test_causal_conv_check_passes_what_the_kernel_takes():
     assert conv._check(*_k4_inputs(C=128, dtype=torch.bfloat16)) == (2, 40, 128)
     assert conv._check(*_k4_inputs(C=332)) == (2, 40, 332)
+
+
+def test_k4_ablations_edit_the_committed_kernel():
+    """The ablation tool edits lines of csrc/causal_conv.cu: each of its
+    kernels differs from the committed one, and an edit that no longer
+    matches raises instead of timing the unedited kernel."""
+    from genomad_torch.ops import _build
+    from genomad_torch.tools import ablate_causal_conv as ab
+
+    source = (_build.CSRC / "causal_conv.cu").read_text()
+    sources = ab.ablated_sources(source)
+    assert sources["kernel"] == source
+    assert len({sources[name] for name in ab.ABLATIONS}) == len(ab.ABLATIONS)
+    with pytest.raises(ValueError, match="expected one"):
+        ab.ablated_sources(source.replace("wgmma_m64n128k16(d, da, db, k | kk);", ""))
