@@ -13,34 +13,35 @@
 //
 // Design (bf16, C = 128): a persistent grid of one block per SM. A block
 // holds all six taps of W in shared memory for its whole life (196,608 B,
-// loaded once) and walks tiles of TM = 64 output rows of one sequence. Its
-// two consumer warpgroups take alternate tiles, each with its own x buffer
-// of the tile's 64 rows plus the 5-row causal halo (17,664 B), so one
-// warpgroup's epilogue and next load overlap the other's products:
-//   196,608 (W) + 2 x 17,664 (x) = 231,936 of the 232,448 B a block may use.
-// Each tile is 48 `wgmma.mma_async` m64n128k16 (6 taps x 8 k steps of 16
-// channels), f32 accumulators in registers (64 per thread), both operands
-// read from shared memory through descriptors:
+// loaded once) and walks tiles of TM = 64 output rows of one sequence. Two
+// consumer warpgroups take alternate tiles, each with its own x buffer of
+// the tile's 64 rows plus the 5-row causal halo (17,664 B); a producer warp
+// fills the buffers by TMA, one load per tile, as each is freed:
+//   196,608 (W) + 2 x 17,664 (x) + 4 x 8 (mbarriers) = 231,968
+// of the 232,448 B a block may use. Each tile is 48 `wgmma.mma_async`
+// m64n128k16 (6 taps x 8 k steps of 16 channels), f32 accumulators in
+// registers (64 per thread), both operands read from shared memory through
+// descriptors:
 //  - x is stored without swizzle as xs[channel/8][row] in 16-byte cells, so
 //    a core matrix (8 rows x 8 channels) is 128 contiguous bytes at any row.
 //    The A operand of tap k is the buffer shifted down by k rows: its
 //    descriptor starts k * 16 bytes later. (The 128B-swizzled layout repeats
-//    every 8 rows and cannot start 1-5 rows in.) The buffer's 69 rows are
-//    odd, so 8 cells of consecutive channels fall in 8 different bank groups
-//    as they are written.
+//    every 8 rows and cannot start 1-5 rows in.) The TMA tensor map views x
+//    as (8 channels, L, 16 cells, B) with strides (2, 256, 16, 256 L) bytes,
+//    so one box (8, 69, 16, 1) lands in that layout; the rows before t = 0
+//    and past L are out of bounds and arrive as zeros.
 //  - W[k] (C_in x C_out, C_out contiguous) is an MN-major B operand, read
 //    with the transpose flag, stored without swizzle in core matrices of 8
 //    input x 8 output channels, copied in 16-byte cells as stored in memory.
-// x tiles come in by cp.async with zero fill for rows before t = 0 and past
-// L; a warpgroup issues its next tile's load as soon as its products are
-// done, before its epilogue. (No TMA or producer warp: TMA into this layout
-// moves 16-byte rows, and on the card the loads are not what holds the
-// kernel back; PERF.md, PR 5.) The warpgroups take turns to issue their
-// products, so one's epilogue runs while the other's products run. The
-// epilogue works from registers in bf16x2 with the JAX rounding points of
-// gt::conv_epilogue, then a quad transpose gives each lane 16 contiguous
-// bytes to store; rows past L are masked. Each output element is one
-// warpgroup's fixed sequence of products: no atomics, a rerun is bit-equal.
+// Each buffer has a full and an empty mbarrier: the producer waits for
+// empty, the TMA completes full, the consumer waits for full and arrives on
+// empty as soon as its products are done, before its epilogue. The
+// consumers take turns to issue their products, so one's epilogue runs
+// while the other's products run. The epilogue works from registers in
+// bf16x2 with the JAX rounding points of gt::conv_epilogue, then a quad
+// transpose gives each lane 16 contiguous bytes to store; rows past L are
+// masked. Each output element is one warpgroup's fixed sequence of
+// products: no atomics, a rerun is bit-equal.
 //
 // Design (f32, parity runs): one block per (tile of TLF positions, batch
 // row) on the CUDA cores in full f32, one thread per output channel holding
@@ -49,6 +50,8 @@
 // Takes f32 (parity) and bf16 (production); accumulates in f32.
 
 #include <algorithm>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cstdint>
 
 #include "common.cuh"
@@ -68,8 +71,8 @@ constexpr int W_TAP_BYTES = C * C * 2;    // 32,768
 constexpr int W_BYTES = KS * W_TAP_BYTES; // 196,608
 constexpr int X_BYTES = KC * XROWS * CELL;  // 17,664
 constexpr int CONSUMERS = 2;              // warpgroups, one x buffer each
-constexpr int THREADS = CONSUMERS * 128;
-constexpr size_t SMEM_BF16 = (size_t)W_BYTES + CONSUMERS * X_BYTES;  // 231,936
+constexpr int THREADS = CONSUMERS * 128 + 32;  // + a producer warp
+constexpr size_t SMEM_BF16 = (size_t)W_BYTES + CONSUMERS * X_BYTES + 4 * 8;  // 231,968
 static_assert(SMEM_BF16 <= 232448, "a block may use 227 KB of shared memory");
 // W in shared memory: tap k, core matrix (ci/8, co/8), row ci%8 of 16 bytes
 constexpr int W_LBO = KC * 128;  // next 8 input channels (K direction)
@@ -88,9 +91,8 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
     return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
@@ -125,22 +127,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// one warpgroup's 128 threads copy the x rows t0-5 .. t0+63 of sequence b
-// into its buffer, zero-filled before t = 0 and past L
-__device__ __forceinline__ void load_x(uint32_t xs, const gt::bf16* __restrict__ x, int tile, int tiles_per_seq,
-                                       int L, int t) {
-    const int b = tile / tiles_per_seq;
-    const int t0 = (tile - b * tiles_per_seq) * TM;
-    const gt::bf16* xb = x + (size_t)b * L * C;
-    for (int i = t; i < XROWS * KC; i += 128) {
-        const int row = i / KC;
-        const int kc = i - row * KC;
-        const int pos = t0 - HALO + row;
-        const bool valid = pos >= 0 && pos < L;
-        cp_async16(xs + (kc * XROWS + row) * CELL, valid ? xb + (size_t)pos * C + kc * 8 : x, valid);
-    }
-}
-
 // 4x4 transpose of 32-bit words across the 4 lanes of a quad: lane q's
 // a[s] becomes lane s's a[q]
 __device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int q) {
@@ -171,45 +157,87 @@ __device__ __forceinline__ uint32_t epilogue_bf16x2(float lo, float hi, __nv_bfl
     return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+__device__ __forceinline__ void mbar_init(uint32_t a, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t a, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t a) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a) : "memory");
+}
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t a, int parity) {
+    asm volatile(
+        "{\n.reg .pred p;\nWAIT_%=:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT_%=;\n}\n" ::"r"(a), "r"(parity) : "memory");
+}
+
 __global__ void __launch_bounds__(THREADS, 1) causal_conv_bf16(
-    const gt::bf16* __restrict__ x, const gt::bf16* __restrict__ w, const gt::bf16* __restrict__ bias,
+    const __grid_constant__ CUtensorMap xmap, const gt::bf16* __restrict__ w, const gt::bf16* __restrict__ bias,
     gt::bf16* __restrict__ out, int L, int tiles, int tiles_per_seq, float slope, int leaky) {
     extern __shared__ __align__(128) unsigned char smem[];
     const uint32_t ws = smem_addr(smem);
     const int wg = threadIdx.x / 128;
     const int t = threadIdx.x % 128;
-    const uint32_t xs = ws + W_BYTES + wg * X_BYTES;
+    const uint32_t bars = ws + W_BYTES + CONSUMERS * X_BYTES;  // full[2], then empty[2]
 
     // W once per block: global cell i = (k*C + ci)*KC + co/8
     for (int i = threadIdx.x; i < KS * C * KC; i += THREADS) {
         const int cc = i % KC;
         const int ci = (i / KC) % C;
         const int k = i / (KC * C);
-        cp_async16(ws + k * W_TAP_BYTES + (ci / 8) * W_LBO + cc * W_SBO + (ci % 8) * CELL, w + (size_t)i * 8, true);
+        cp_async16(ws + k * W_TAP_BYTES + (ci / 8) * W_LBO + cc * W_SBO + (ci % 8) * CELL, w + (size_t)i * 8);
     }
-    const int stride = gridDim.x * CONSUMERS;
-    int tile = blockIdx.x * CONSUMERS + wg;
-    if (tile < tiles) load_x(xs, x, tile, tiles_per_seq, L, t);
     cp_async_commit();
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < 4; ++i) mbar_init(bars + 8 * i, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cp_async_wait_all();
+    fence_async_shared();
+    __syncthreads();  // W and the barriers are ready
+    const int stride = gridDim.x * CONSUMERS;
 
-    // this thread's output columns: 8j + 2(lane%4) + {0, 1}, j < 16
+    if (wg == CONSUMERS) {
+        // producer: one lane loads each warpgroup's tiles in the order the
+        // warpgroups take them, each into its buffer once that is empty
+        if (t == 0) {
+            for (int r = 0;; ++r) {
+                const int base = blockIdx.x * CONSUMERS + r * stride;
+                if (base >= tiles) break;
+                for (int g = 0; g < CONSUMERS && base + g < tiles; ++g) {
+                    const int tile = base + g;
+                    const int b = tile / tiles_per_seq;
+                    const int t0 = (tile - b * tiles_per_seq) * TM;
+                    const uint32_t full = bars + 8 * g, empty = bars + 8 * (2 + g);
+                    mbar_wait(empty, (r & 1) ^ 1);
+                    mbar_expect(full, X_BYTES);
+                    asm volatile(
+                        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+                        " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(ws + W_BYTES + g * X_BYTES),
+                        "l"(reinterpret_cast<uint64_t>(&xmap)), "r"(0), "r"(t0 - HALO), "r"(0), "r"(b), "r"(full)
+                        : "memory");
+                }
+            }
+        }
+        return;
+    }
+
+    const uint32_t xs = ws + W_BYTES + wg * X_BYTES;
     const int lane = t % 32;
     const int row_in_tile = (t / 32) * 16 + lane / 4;
     __nv_bfloat162 bias2[16];
 #pragma unroll
     for (int j = 0; j < 16; ++j) bias2[j] = *reinterpret_cast<const __nv_bfloat162*>(bias + 8 * j + 2 * (lane % 4));
     const __nv_bfloat162 slope2 = __float2bfloat162_rn(slope);
-    cp_async_wait_all();
-    fence_async_shared();
-    __syncthreads();  // W is in for both warpgroups
-
     float d[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[i] = 0.f;
-    for (; tile < tiles; tile += stride) {
-        cp_async_wait_all();
-        fence_async_shared();
-        wg_barrier(wg);  // the tile's x rows are in
+    int r = 0;
+    for (int tile = blockIdx.x * CONSUMERS + wg; tile < tiles; tile += stride, ++r) {
+        mbar_wait(bars + 8 * wg, r & 1);  // the tile's x rows are in
         // the warpgroups take turns to issue a tile's products (warpgroup 0
         // first), so one's run on the tensor cores while the other's
         // epilogue runs, instead of both running at half speed side by side
@@ -228,9 +256,8 @@ __global__ void __launch_bounds__(THREADS, 1) causal_conv_bf16(
         // pass the turn when the other warpgroup has a tile to take it for
         if (wg == 0 ? tile + 1 < tiles : tile - 1 + stride < tiles) pass_turn(wg);
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-        wg_barrier(wg);  // every warp's products are done: the buffer is free
-        if (tile + stride < tiles) load_x(xs, x, tile + stride, tiles_per_seq, L, t);
-        cp_async_commit();
+        wg_barrier(wg);                                 // every warp's products are done:
+        if (t == 0) mbar_arrive(bars + 8 * (2 + wg));  // the buffer is free for the next tile
 
         // epilogue: lane q of a quad holds columns 8j + 2q, +1 of its two
         // rows; a quad transpose gives each lane 8 whole columns (16 bytes)
@@ -255,7 +282,6 @@ __global__ void __launch_bounds__(THREADS, 1) causal_conv_bf16(
             }
         }
     }
-    cp_async_wait_all();
 }
 
 // ---- f32 path (parity runs; any C with (TLF + HALO) * C floats <= 48 KB) ----
@@ -298,25 +324,49 @@ __global__ void __launch_bounds__(THREADS_F32) causal_conv_f32(
 
 }  // namespace
 
+// The tensor map of x for the bf16 kernel (see the note at the top), built
+// for each call through the driver's cuTensorMapEncodeTiled, which the
+// runtime hands out without linking the driver library.
+static cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int B, int L) {
+    static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+    if (!encode) {
+        cudaDriverEntryPointQueryResult found;
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                                        cudaEnableDefault, &found);
+        if (err != cudaSuccess) return err;
+        if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    }
+    cuuint64_t dims[4] = {8, (cuuint64_t)L, (cuuint64_t)KC, (cuuint64_t)B};
+    cuuint64_t strides[3] = {(cuuint64_t)C * 2, CELL, (cuuint64_t)L * C * 2};  // bytes, dims 1-3
+    cuuint32_t box[4] = {8, XROWS, KC, 1};
+    cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+    const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
+                                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 extern "C" int causal_conv_launch(const void* x, const void* w, const void* bias, void* out, int B, int L,
                                   int Cin, int is_bf16, float slope, int leaky, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_bf16) {
         if (Cin != C) return static_cast<int>(cudaErrorInvalidValue);
+        const int tiles_per_seq = (L + TM - 1) / TM;
+        const long long tiles = (long long)B * tiles_per_seq;
+        if (tiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
         int dev = 0, sms = 0;
+        CUtensorMap map;
         cudaError_t err = cudaGetDevice(&dev);
         if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (err == cudaSuccess)
             err = cudaFuncSetAttribute(causal_conv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(SMEM_BF16));
+        if (err == cudaSuccess) err = x_tensor_map(&map, x, B, L);
         if (err != cudaSuccess) return static_cast<int>(err);
-        const int tiles_per_seq = (L + TM - 1) / TM;
-        const long long tiles = (long long)B * tiles_per_seq;
-        if (tiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
         const int blocks = static_cast<int>(std::min<long long>(sms, (tiles + CONSUMERS - 1) / CONSUMERS));
         causal_conv_bf16<<<blocks, THREADS, SMEM_BF16, s>>>(
-            static_cast<const gt::bf16*>(x), static_cast<const gt::bf16*>(w), static_cast<const gt::bf16*>(bias),
-            static_cast<gt::bf16*>(out), L, static_cast<int>(tiles), tiles_per_seq, slope, leaky);
+            map, static_cast<const gt::bf16*>(w), static_cast<const gt::bf16*>(bias), static_cast<gt::bf16*>(out),
+            L, static_cast<int>(tiles), tiles_per_seq, slope, leaky);
     } else {
         const size_t smem = (size_t)(TLF + HALO) * Cin * sizeof(float);
         if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);

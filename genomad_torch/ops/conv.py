@@ -158,6 +158,8 @@ def _check(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> tuple[i
     _build.require(all(t.is_contiguous() for t in (x, kernel, bias)), "inputs must be contiguous")
     if x.dtype == torch.bfloat16:
         _build.require(C == _build.TC_CHANNELS, f"the bf16 kernel takes C = {_build.TC_CHANNELS}")
+        # its TMA and 16-byte copies read x and the kernel at 16-byte boundaries
+        _build.require(all(t.data_ptr() % 16 == 0 for t in (x, kernel, bias)), "the bf16 kernel takes 16-byte aligned inputs")
     else:
         _build.require((32 + HALO) * C * 4 <= 48 * 1024, "the f32 kernel takes C <= 332")
     return B, L, C

@@ -5,8 +5,9 @@ itself with one part taken out, timed on the card.
 
 Builds ``genomad_torch/csrc/causal_conv.cu`` and, from the same source with
 a line edited out, kernels that skip the products (the memory path and the
-epilogue alone), the x loads after each warpgroup's first tile, the output
-stores, or all three but the products (the tensor-core path alone). Their
+epilogue alone), the x loads (the producer marks each buffer full without
+loading it), the output stores, or the loads and the stores (the
+tensor-core path and the epilogue's arithmetic alone). Their
 outputs are wrong by design; only their times mean something. Each runs at
 B x L x 128 (default 128 x 6,016, the nn path's shape), in turns with the
 others and with two yardsticks: ``F.conv1d`` (cuDNN) on the same inputs,
@@ -32,7 +33,9 @@ from genomad_torch.ops import _build, conv
 
 # text in causal_conv.cu -> what each ablation puts in its place
 _PRODUCTS = ("wgmma_m64n128k16(d, da, db, k | kk);", "if (k < 0) wgmma_m64n128k16(d, da, db, k | kk);")
-_LOADS = ("if (tile + stride < tiles) load_x(xs, x, tile + stride, tiles_per_seq, L, t);", "")
+# the producer completes each buffer's barrier without loading anything
+_LOADS = ("mbar_expect(full, X_BYTES);\n                    asm volatile(",
+          "mbar_arrive(full);\n                    if (tile < 0) asm volatile(")
 _STORES = ("if (pos < L) *reinterpret_cast<uint4*>", "if (pos < 0) *reinterpret_cast<uint4*>")
 ABLATIONS = {
     "kernel": (),

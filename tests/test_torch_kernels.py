@@ -197,8 +197,13 @@ def _k4_inputs(C=16, dtype=torch.float32):
         (lambda: (_k4_inputs()[0].transpose(0, 1), *_k4_inputs()[1:]), "must be contiguous"),
         (lambda: (_k4_inputs()[0], torch.zeros((5, 16, 16)), _k4_inputs()[2]), r"must be \(6, C, C\)"),
         (lambda: (_k4_inputs()[0], torch.zeros((6, 16, 8)), _k4_inputs()[2]), r"must be \(6, C, C\)"),
+        (
+            lambda: (torch.zeros(2 * 40 * 128 + 1, dtype=torch.bfloat16)[1:].view(2, 40, 128),
+                     *_k4_inputs(C=128, dtype=torch.bfloat16)[1:]),
+            "16-byte aligned",
+        ),
     ],
-    ids=["bf16-C64", "mixed-dtypes", "non-contiguous-x", "five-taps", "not-square"],
+    ids=["bf16-C64", "mixed-dtypes", "non-contiguous-x", "five-taps", "not-square", "bf16-misaligned-x"],
 )
 def test_causal_conv_checks_its_inputs(case, match):
     """K4 makes these checks before it launches and raises on what the kernel
