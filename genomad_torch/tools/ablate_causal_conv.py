@@ -13,8 +13,9 @@ B x L x 128 (default 128 x 6,016, the nn path's shape), in turns with the
 others and with two yardsticks: ``F.conv1d`` (cuDNN) on the same inputs,
 and a ``copy_`` of x, which moves the bytes K4 must move (x read, out
 written) at the rate the card's memory reaches. Prints milliseconds per
-launch (min and median of the turns) as one JSON line, beside the card's
-name and power limit. A measurement: it needs a card and raises without
+launch (min and median of the turns), and the median SM clock and board
+power nvidia-smi reads while each runs alone for a second, as one JSON line,
+beside the card's name and power limit. A measurement: it needs a card and raises without
 one.
 """
 
@@ -95,6 +96,26 @@ def _ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _clocks(fn, seconds: float = 1.0) -> dict:
+    """Median SM clock (MHz) and board power (W) that nvidia-smi samples
+    while ``fn`` runs back to back for about ``seconds``."""
+    per_call = _ms(fn, iters=10) / 1e3
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+                            "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        for _ in range(max(1, int(seconds / per_call))):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    # the first two samples may come before the loop starts
+    samples = [line.split(",") for line in smi.communicate()[0].splitlines()[2:] if line.strip()]
+    if not samples:
+        return {"sm_mhz": None, "power_w": None}
+    return {"sm_mhz": statistics.median(float(c) for c, _ in samples),
+            "power_w": statistics.median(float(p) for _, p in samples)}
+
+
 def main(B: int = 128, L: int = 6016, turns: int = 3) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this tool times kernels on the card")
@@ -121,11 +142,12 @@ def main(B: int = 128, L: int = 6016, turns: int = 3) -> dict:
     for _ in range(turns):  # in turns, forward and back, so drift hits every run alike
         for name in list(runs) + list(runs)[::-1]:
             times[name].append(_ms(runs[name]))
+    clocks = {name: _clocks(fn) for name, fn in runs.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     result = {
         "card": smi, "B": B, "L": L, "C": C,
-        "ms": {name: {"min": min(t), "median": statistics.median(t)} for name, t in times.items()},
+        "ms": {name: {"min": min(t), "median": statistics.median(t), **clocks[name]} for name, t in times.items()},
     }
     print(json.dumps(result))
     return result
