@@ -9,7 +9,9 @@
 // GEMM of M = B*L = 770,048 rows, N = 128, K = 6*128 = 768: 151 GFLOP, 0.153
 // ms at 989 TFLOP/s in bf16, against 394 MB of x read and out written (0.118
 // ms at 3.35 TB/s). So the tensor cores must stay fed, and W, the same for
-// every row, must not be fetched again for every tile.
+// every row, must not be fetched again for every tile. Measured on the card
+// at 700 W, tensor cores and memory busy together hold it at its power limit
+// with the SM clock near 1.45 GHz (PERF.md, section 6).
 //
 // Design (bf16, C = 128): a persistent grid of one block per SM. A block
 // holds all six taps of W in shared memory for its whole life (196,608 B,
@@ -325,8 +327,8 @@ __global__ void __launch_bounds__(THREADS_F32) causal_conv_f32(
 }  // namespace
 
 // The tensor map of x for the bf16 kernel (see the note at the top), built
-// for each call through the driver's cuTensorMapEncodeTiled, which the
-// runtime hands out without linking the driver library.
+// for each call by cuTensorMapEncodeTiled, looked up through the runtime so
+// that the library does not link libcuda.
 static cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int B, int L) {
     static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
     if (!encode) {
