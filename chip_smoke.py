@@ -24,12 +24,14 @@ only the full run, with no arguments, does.
               times kernel, plain version and the PyTorch library call that
               computes the same function, beside the card's bound.
 4. sw       - holds K1 sw_pairs (Smith-Waterman) bit for bit against its
-              plain version: the annotate path's buckets (Lq = Lp = 256 and
-              384, N = 4096 pairs from an integral 20,000-profile DB staged
-              in bf16), forward and reverse passes, with and without the
-              real lengths, a float-PSSM f32 bucket, a ragged N, one
-              1024 x 1024 pair and one 4096-bucket pair; times the kernel
-              and the plain version, beside the bound and the cells/s.
+              plain version: the annotate path's buckets (Lq = Lp = 128,
+              256, 384 and 512, N = 4096 pairs from an integral
+              20,000-profile DB staged in bf16), forward and reverse passes,
+              with and without the real lengths, a float-PSSM f32 bucket, a
+              ragged N, one 1024 x 1024 pair, one 4096-bucket pair and the
+              edge cases of ``sw_edge_cases`` (f32 and bf16); times the
+              kernel by bucket and the plain version, beside the bound and
+              the cells/s. ``--only sw`` is the loop for K1 work.
 5. main     - nn-classification through its entry point on a synthetic
               metagenome of >= 24 Mbp (bf16, batch 128); checks the TSV, the
               kernels' launch counts, and the f32 forward with the kernels
@@ -96,6 +98,7 @@ PEAK_F32_LANE_OPS = 33.5e12
 SW_DB_PROFILES = 20_000
 REAL_DB_PROFILES = 227_897  # the geNomad DB's profile count
 SW_PAIRS = 4096
+SW_BUCKETS = (128, 256, 384, 512)  # the 20,000-profile DB's buckets (lengths 60-400)
 GENOME_MBP = 2.0
 N_SEARCH_QUERIES = 500
 N_HVH_CONTIGS = 3  # planted host-virus-host contigs in the end-to-end input
@@ -728,7 +731,7 @@ def sw_kernel_phase(results: dict, db) -> None:
     rng = np.random.default_rng(SEED + 2)
     errs = []
     timed = {}
-    for L in (256, 384):
+    for L in SW_BUCKETS:
         all_q, all_p, idx, (q_len, p_len) = sw_bucket_pairs(db, L, SW_PAIRS, rng, dev)
         if all_p.dtype != torch.bfloat16:
             raise AssertionError(f"the {SW_DB_PROFILES}-profile integral DB staged as {all_p.dtype}, not bf16")
@@ -794,17 +797,39 @@ def sw_kernel_phase(results: dict, db) -> None:
     torch.cuda.synchronize()
     log("# sw: float-PSSM f32 bucket, 1024x1024 pair and 4096-bucket pair bit-equal (forward and reverse)")
 
-    # timings at the annotate path's shapes: CUDA events, forward and reverse
+    for name, case in sw_edge_cases().items():
+        bq, bp, bidx, blens = case["bucket"]
+        eq, ep, eidx = (torch.from_numpy(a).to(dev) for a in (bq, bp, bidx))
+        lens = tuple(torch.from_numpy(a).to(dev) for a in blens)
+        for dtype in (torch.float32, torch.bfloat16):
+            pt = ep.to(dtype)
+            one = sw.sw_pairs(eq, pt, eidx, lengths=lens)
+            errs.append(sw_equal(one, sw.sw_pairs_plain(eq, pt, eidx), f"edge case {name} forward {dtype}"))
+            errs.append(sw_equal(sw.sw_pairs(eq, pt, eidx), sw.sw_pairs_plain(eq, pt, eidx), f"edge case {name} full bucket {dtype}"))
+            if case["expect"] is not None:
+                got = [(float(b), int(i), int(j)) for b, i, j in zip(*(x.cpu() for x in one))]
+                if got != case["expect"]:
+                    raise AssertionError(f"K1 edge case {name} {dtype}: {got} != {case['expect']}")
+            if case["reverse"]:
+                e1 = torch.stack([one[1], one[2]])
+                errs.append(sw_equal(sw.sw_pairs(eq, pt, eidx, ends=e1, lengths=lens),
+                                     sw.sw_pairs_plain(eq, pt, eidx, ends=e1), f"edge case {name} reverse {dtype}"))
+    torch.cuda.synchronize()
+    log(f"# sw: the {len(SW_EDGE_CASES)} edge cases bit-equal in f32 and bf16 (forward, full bucket, reverse where marked)")
+
+    # timings at the annotate path's shapes: CUDA events, forward by bucket,
+    # reverse and the full bucket at 256, the plain version at 256 and 384
+    by_bucket = {}
+    for L in SW_BUCKETS:
+        t = timed[L]
+        ms_l = cuda_time(lambda: sw.sw_pairs(*t["args"], lengths=t["lengths"]), iters=20)
+        bound_l, by_l = sw_bound(*t["args"], *t["lengths"], t["cells_f"])
+        by_bucket[L] = {"forward_ms": ms_l, "gcells_s": t["cells_f"] / ms_l / 1e6, "bound_ms": bound_l, "bound_by": by_l}
     t = timed[256]
     all_q, all_p, idx = t["args"]
-    ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx, lengths=t["lengths"]), iters=20)
-    plain_ms = cuda_time(lambda: sw.sw_pairs_plain(all_q, all_p, idx), iters=3, warmup=1)
+    plain = {L: cuda_time(lambda: sw.sw_pairs_plain(*timed[L]["args"]), iters=3, warmup=1) for L in (256, 384)}
     rev_ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx, ends=t["ends"], lengths=t["lengths"]), iters=20)
     full_ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx), iters=20)  # every bucket cell, no real lengths
-    t384 = timed[384]
-    ms384 = cuda_time(lambda: sw.sw_pairs(*t384["args"], lengths=t384["lengths"]), iters=20)
-    bound_ms, bound_by = sw_bound(all_q, all_p, idx, *t["lengths"], t["cells_f"])
-    bound384, _ = sw_bound(*t384["args"], *t384["lengths"], t384["cells_f"])
     results["sw_pairs"] = {
         "name": "sw_pairs",
         "route": "cuda",
@@ -812,22 +837,89 @@ def sw_kernel_phase(results: dict, db) -> None:
         "replaces": "genomad_tpu/ops/sw_pallas.py:150",
         "launches": None,  # filled from the annotate path's run
         "max_abs_err": max(errs),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": by_bucket[256]["forward_ms"],
+        "plain_ms": plain[256],
+        "bound_ms": by_bucket[256]["bound_ms"],
+        "bound_by": by_bucket[256]["bound_by"],
         "library_ms": None,  # no PyTorch call computes Smith-Waterman
     }
     log(
         "# sw timing (bf16, N=4096, real lengths): " + json.dumps({
-            "forward_256_ms": ms, "forward_256_gcells_s": t["cells_f"] / ms / 1e6, "bound_256_ms": bound_ms,
-            "bound_by": bound_by, "plain_256_ms": plain_ms,
+            "forward_by_bucket": by_bucket, "plain_256_ms": plain[256], "plain_384_ms": plain[384],
             "forward_256_full_bucket_ms": full_ms, "full_bucket_gcells_s": SW_PAIRS * 256 * 256 / full_ms / 1e6,
             "reverse_256_ms": rev_ms, "reverse_256_gcells_s": t["cells_r"] / rev_ms / 1e6,
-            "forward_384_ms": ms384, "forward_384_gcells_s": t384["cells_f"] / ms384 / 1e6, "bound_384_ms": bound384,
             "library_ms": "null: no PyTorch call computes Smith-Waterman",
         })
     )
+
+
+def _sw_edge_bucket(Lq, Lp, q_lens, p_lens, rng, planted=None):
+    """A staged bucket (code 20 past each query's length; zero rows past
+    each profile's length and a zero column 20), with every (query,
+    profile) pair. With ``planted`` (a list of (profile, row, column, score)
+    cells), query row i is residue i % 20 and every profile scores -4 but at
+    the planted cells, where the column scores that row's residue of query
+    0; without it, integral random profiles, each with a consensus residue
+    per column that query k % nq copies (every ninth residue from the fifth
+    changed)."""
+    nq, npf = len(q_lens), len(p_lens)
+    all_q = np.full((nq, Lq), 20, np.int32)
+    for k, n in enumerate(q_lens):
+        all_q[k, :n] = np.arange(n) % 20 if planted is not None else rng.integers(0, 20, n)
+    all_p = np.zeros((npf, Lp, 21), np.float32)
+    for k, n in enumerate(p_lens):
+        if planted is not None:
+            all_p[k, :n, :20] = -4.0
+        else:  # integral PSSM with a consensus residue per column
+            all_p[k, :n, :20] = np.round(rng.normal(-2.0, 0.8, (n, 20)))
+            cons = rng.integers(0, 20, n)
+            all_p[k, np.arange(n), cons] += 7.0
+            m = min(n, q_lens[k % nq])
+            all_q[k % nq, :m] = cons[:m]  # a planted match in query k % nq
+            all_q[k % nq, 4:m:9] = rng.integers(0, 20, len(range(4, m, 9)))
+    for prof, i, j, v in planted or ():
+        all_p[prof, j, all_q[0, i]] = v
+    idx = np.array([(a, b) for a in range(nq) for b in range(npf)], np.int32).T.copy()
+    return all_q, all_p, idx, (np.asarray(q_lens, np.int32), np.asarray(p_lens, np.int32))
+
+
+SW_EDGE_CASES = (
+    "tie_row_cols_31_32_Lp64", "tie_row_cols_255_256_Lp384", "tie_row_cols_263_264_Lp384", "tie_two_rows",
+    "lengths_1_31_33", "length_257", "ncols_5", "all_negative", "reverse_257",
+)
+
+
+def sw_edge_cases() -> dict:
+    """Edge cases of K1's register-chunk layout (lane l holds columns
+    [l k, l k + k), k = ceil(ncols / 32)), integral: name -> {"bucket":
+    (all_q, all_p, idx, (q_len, p_len)) numpy arrays, "reverse": whether the
+    reverse pass is checked too, "expect": [(best, end_i, end_j)] per pair or
+    None}. Equal maxima in one row must give the first column, equal maxima
+    in two rows the earlier row; columns 31/32 at Lp = 64 (k = 2) and 263/264
+    at Lp = 384 (k = 12) sit on either side of a lane's chunk, 255/256 at
+    Lp = 384 inside one. tests/test_torch_sw.py holds the plain version
+    against the JAX oracle on them; the sw phase holds the kernel against
+    the plain version."""
+    rng = np.random.default_rng(SEED + 7)
+    cases = {}
+
+    def add(name, bucket, expect=None, reverse=False):
+        cases[name] = {"bucket": bucket, "expect": expect, "reverse": reverse}
+
+    for name, Lp, cols in (("tie_row_cols_31_32_Lp64", 64, (31, 32)),
+                           ("tie_row_cols_255_256_Lp384", 384, (255, 256)),
+                           ("tie_row_cols_263_264_Lp384", 384, (263, 264))):
+        add(name, _sw_edge_bucket(16, Lp, [16], [Lp], rng, planted=[(0, 3, c, 9.0) for c in cols]),
+            expect=[(9.0, 3, cols[0])])
+    # the later row's cell lies in an earlier lane: the earlier row wins
+    add("tie_two_rows", _sw_edge_bucket(16, 64, [16], [64], rng, planted=[(0, 2, 40, 9.0), (0, 6, 10, 9.0)]),
+        expect=[(9.0, 2, 40)])
+    add("lengths_1_31_33", _sw_edge_bucket(64, 64, [1, 31, 33], [1, 31, 33], rng))
+    add("length_257", _sw_edge_bucket(384, 384, [257, 300], [257, 257], rng))
+    add("ncols_5", _sw_edge_bucket(40, 64, [40, 5], [5, 5], rng))  # fewer real columns than lanes
+    add("all_negative", _sw_edge_bucket(16, 64, [16], [50], rng, planted=[]), expect=[(0.0, 0, 0)])
+    add("reverse_257", _sw_edge_bucket(384, 384, [257, 300], [257, 257], rng), reverse=True)
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -1495,7 +1587,7 @@ def main(argv: list[str] | None = None) -> int:
         log(f"# build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (already built)'}")
         for name, out in logs.items():
             for line in out.splitlines():
-                if "registers" in line or "spill" in line or "wgmma" in line:
+                if "registers" in line or "spill" in line or "wgmma" in line or "Function properties" in line:
                     log(f"#   {name}: {line.strip()}")
     except Exception:  # noqa: BLE001
         failures.append("build")

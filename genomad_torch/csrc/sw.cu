@@ -22,25 +22,67 @@
 //
 // What bounds it on an H100: operations. Each cell costs about a dozen f32
 // operations of the recurrence (33.5 T lane-ops/s: 132 SMs x 128 lanes x
-// 1.98 GHz) and the design spends ~40 warp instructions per strip of 32
-// cells; the operands are tiny beside that (a pair reads its query row and
-// Lp x 21 profile scores once: ~10 KB per pair at Lp = 256 in bf16 against
-// ~65k cells, so 3.35 TB/s is never the limit).
+// 1.98 GHz); the operands are tiny beside that (a pair reads its query row
+// and Lp x 21 profile scores once: ~10 KB per pair at Lp = 256 in bf16
+// against ~65k cells, so 3.35 TB/s is never the limit). So the design
+// spends as few warp instructions per cell as it can, and keeps the long
+// chains of dependent shuffles out of the per-cell work.
 //
-// Design (a simple first version that is right; integer DP for integral
-// PSSMs, several pairs per warp and TMA staging are later work):
+// Design for Lp <= 1024, the register-chunk body (`sw_chunk_kernel`):
 // - One warp per pair; the pair reads its operands by index (the gathered
-//   (N, Lp, 21) operand of the JAX path never exists). Lanes walk the
-//   profile columns in strips of 32, row by row.
-// - Lp <= 1024: the pair's profile is staged transposed (21 x Lp, native
-//   dtype) in shared memory with its H and F row carries, so a row reads
-//   its 32-column strip of scores without bank conflicts. Longer buckets
-//   (4096, 32768) keep H and F in a global scratch the wrapper allocates
-//   and read the scores from global memory; a grid-stride loop bounds the
-//   scratch by the number of warps.
-// - The horizontal gap is the closed form above: a warp inclusive
-//   prefix max (__shfl_up_sync) carried across strips, shifted by one.
-// - A warp reduction gives the row max and its first index.
+//   (N, Lp, 21) operand of the JAX path never exists). Rows are walked in
+//   the oracle's order, so the tie rule below needs no new proof; only the
+//   layout of a row's columns across the lanes is new.
+// - Lane l holds the contiguous chunk of columns [l*k, l*k + k) in
+//   registers, with k = ceil(ncols / 32) chosen per pair from its real
+//   length (ncols), up to a compile-time KMAX per bucket: 4, 8, 12, 16, 24
+//   and 32 for Lp = 128, 256, 384, 512, 768 and 1024 (the smallest that
+//   covers ceil(Lp / 32)). Each k up to 12 has its own unrolled body; above
+//   12, k is rounded up to a multiple of KMAX / 8 (at most 8 bodies per
+//   bucket, at most one column in 13 of extra work). The previous row's H
+//   and F of the chunk live in registers; shared memory holds only the
+//   pair's staged profile.
+// - The staged profile is transposed for conflict-free reads: the score of
+//   column l*k + c for query code q sits at Ps[q*32k + c*32 + l], so each of
+//   a row's k score loads reads 32 consecutive elements.
+// - The diagonal is in-chunk; the chunk's first column takes the left
+//   lane's last H of the previous row with one __shfl_up_sync (0 on lane 0).
+// - The horizontal gap keeps the closed form, in its expression order:
+//   t_j = (h0_j - 11) + j; each lane takes the running max of t over its
+//   chunk; one warp scan of the chunk maxima (5 shuffles and maxes, then one
+//   shift) gives the max of every earlier lane; e_j = m_j - (j - 1). Max is
+//   exact in any order, so this is bit-equal on float PSSMs too (the
+//   sequential form max(e_{j-1} - 1, h0_{j-1} - 11) would round otherwise).
+// - Columns at or past ncols are masked: their scores are staged as -inf,
+//   their t as -inf (kept out of the scan) and their e as -inf, so their H
+//   stays 0 and can never be strictly greater than the best (which starts
+//   at 0). E flows only rightward, so no real column reads them.
+// - The best cell is tracked per lane, with no reduction per row. Each lane
+//   keeps (best, i, j) over its own cells: a row replaces it only when the
+//   lane's row maximum is strictly greater, and then with the first column
+//   of the chunk holding it. After the last row one warp reduction takes
+//   the highest value, then the lowest i, then the lowest j. This is the
+//   oracle's rule: there a later row replaces the best only when strictly
+//   greater and the first column of a row wins, so the oracle returns the
+//   cell of highest value with the smallest (i, j); a lane's triple is the
+//   smallest (i, j) among its own cells of its highest value, the chunks
+//   partition the columns, and the reduction picks the smallest (i, j)
+//   among the lanes of the highest value.
+// - Cost per row: about 14 instructions per cell of the chunk (one shared
+//   load, the recurrence, the running maxima) plus about 20 for the
+//   diagonal shuffle, the scan and the query code; the search for the first
+//   column runs only in a row that raises a lane's best.
+//
+// Longer buckets (4096, 32768), `sw_kernel` with STAGED = false: lanes walk
+// the profile columns in strips of 32, row by row; H and F live in a global
+// scratch the wrapper allocates and the scores are read from global memory;
+// a grid-stride loop bounds the scratch by the number of warps. The
+// horizontal gap is a warp inclusive prefix max (__shfl_up_sync) carried
+// across strips, shifted by one, and a warp reduction gives each row's max
+// and its first index. (STAGED = true, the profile and the H/F carries in
+// shared memory, was this design's body for Lp <= 1024.)
+//
+// Both bodies:
 // - Reverse pass (ends != NULL): row t reads q[end_i - t] (code 20 past
 //   the prefix), column t reads P[end_j - t] (zero past it): the reversed
 //   prefixes of protein_search._sw_rev_cov by index arithmetic.
@@ -49,6 +91,7 @@
 //   the first-index rule keeps real columns ahead of padding on ties.
 
 #include <cstdint>
+#include <limits>
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -235,10 +278,222 @@ cudaError_t launch(const void* q, const void* p, const void* idx, const void* en
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Register-chunk body (Lp <= 1024)
+// ---------------------------------------------------------------------------
+
+constexpr float NEG_INF = -std::numeric_limits<float>::infinity();
+
+// One pair's real extents and its operands' index arithmetic (the reverse
+// pass reads the reversed prefixes ending at (ei, ej)).
+struct PairView {
+    const int* qrow;
+    int Lq, Lp, ei, ej, nrows, ncols;
+    bool rev;
+
+    __device__ __forceinline__ int prof_row(int j) const {  // -1 = zero row
+        if (!rev) return j;
+        const int r = ej - j;
+        return (r >= 0 && r < Lp) ? r : -1;
+    }
+    __device__ __forceinline__ int query_code(int i) const {
+        if (!rev) return qrow[i];
+        const int r = ei - i;
+        return (r >= 0 && r < Lq) ? qrow[r] : PAD;
+    }
+};
+
+// One pair with K columns per lane (32 K >= ncols): stages the profile, runs
+// the rows, and leaves the lane's best (value, row, column).
+template <typename T, int K>
+__device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+                                           int lane, float& best, int& best_i, int& best_j) {
+    constexpr int LDK = 32 * K;  // staged elements per query code
+    __syncwarp();  // the previous pair has read its profile
+    for (int e = lane; e < LDK * NCOL; e += 32) {
+        const int j = e / NCOL;
+        const int code = e - j * NCOL;
+        T v = gt::from_float<T>(NEG_INF);
+        if (j < pv.ncols) {
+            const int r = pv.prof_row(j);
+            v = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
+        }
+        Ps[code * LDK + (j % K) * 32 + j / K] = v;
+    }
+    __syncwarp();
+
+    const int j0 = lane * K;
+    float H[K], Fp[K], colf[K], colm1[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+        const bool real = j0 + c < pv.ncols;
+        H[c] = 0.f;
+        Fp[c] = NEG_INF;
+        colf[c] = real ? (float)(j0 + c) : NEG_INF;                          // masked: t = -inf
+        colm1[c] = real ? __fsub_rn((float)(j0 + c), GAP_EXTEND) : -NEG_INF;  // masked: e = -inf
+    }
+    float lbest = 0.f;
+    int li = 0, lc = 0;
+    int code = pv.query_code(0);
+    for (int i = 0; i < pv.nrows; ++i) {
+        const int next = i + 1 < pv.nrows ? pv.query_code(i + 1) : PAD;
+        const T* s = Ps + code * LDK + lane;
+        const float up = __shfl_up_sync(FULL, H[K - 1], 1);
+        float diag = lane == 0 ? 0.f : up;
+        float P[K];  // running max of t over the chunk, through column c
+        float run = NEG_INF;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+            const float hp = H[c];
+            const float f = fmaxf(__fsub_rn(hp, GAP_OPEN), __fsub_rn(Fp[c], GAP_EXTEND));
+            const float h0 = fmaxf(fmaxf(__fadd_rn(diag, gt::to_float(s[c * 32])), f), 0.f);
+            diag = hp;
+            Fp[c] = f;
+            H[c] = h0;
+            run = fmaxf(run, __fadd_rn(__fsub_rn(h0, GAP_OPEN), colf[c]));
+            P[c] = run;
+        }
+        // inclusive scan of the chunk maxima, then shifted: the max of t over
+        // every column of the earlier lanes (lanes below `off` get their own
+        // value back, which leaves the max unchanged)
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) run = fmaxf(run, __shfl_up_sync(FULL, run, off));
+        const float below = __shfl_up_sync(FULL, run, 1);
+        const float ex = lane == 0 ? NEG_INF : below;
+        float rmax = 0.f;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+            const float m = c == 0 ? ex : fmaxf(ex, P[c - 1]);
+            H[c] = fmaxf(H[c], __fsub_rn(m, colm1[c]));
+            rmax = fmaxf(rmax, H[c]);
+        }
+        if (rmax > lbest) {  // rare after the first rows: find the first column
+            int first = K - 1;
+#pragma unroll
+            for (int c = K - 1; c >= 0; --c) {
+                if (H[c] == rmax) first = c;
+            }
+            lbest = rmax;
+            li = i;
+            lc = first;
+        }
+        code = next;
+    }
+    best = lbest;
+    best_i = li;
+    best_j = j0 + lc;
+}
+
+// Above 12 columns per lane, k is rounded up to a multiple of KMAX / 8.
+__host__ __device__ constexpr int chunk_step(int kmax) { return kmax <= 12 ? 1 : kmax / 8; }
+
+template <typename T, int K, int KMAX>
+__device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+                                               int lane, float& best, int& best_i, int& best_j) {
+    if constexpr (K >= KMAX) {
+        chunk_pair<T, KMAX>(pv, prow, Ps, lane, best, best_i, best_j);
+    } else {
+        if (k <= K) {
+            chunk_pair<T, K>(pv, prow, Ps, lane, best, best_i, best_j);
+        } else {
+            chunk_dispatch<T, K + chunk_step(KMAX), KMAX>(k, pv, prow, Ps, lane, best, best_i, best_j);
+        }
+    }
+}
+
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(WARPS * 32) sw_chunk_kernel(
+    const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
+    const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
+    float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out, int N, int Lq, int Lp) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int pair = blockIdx.x * WARPS + warp;
+    if (pair >= N) return;
+    T* Ps = reinterpret_cast<T*>(smem_raw) + (size_t)warp * NCOL * 32 * KMAX;
+
+    const int qi = idx[pair];
+    const int pi = idx[N + pair];
+    PairView pv;
+    pv.qrow = q + (size_t)qi * Lq;
+    pv.Lq = Lq;
+    pv.Lp = Lp;
+    pv.rev = ends != nullptr;
+    pv.ei = pv.rev ? ends[pair] : 0;
+    pv.ej = pv.rev ? ends[N + pair] : 0;
+    int nrows = Lq, ncols = Lp;
+    if (q_len != nullptr) {
+        nrows = min(nrows, q_len[qi]);
+        ncols = min(ncols, p_len[pi]);
+        if (pv.rev) {
+            nrows = min(nrows, pv.ei + 1);
+            ncols = min(ncols, pv.ej + 1);
+        }
+    }
+    pv.nrows = max(nrows, 0);
+    pv.ncols = max(ncols, 0);
+
+    float best = 0.f;
+    int best_i = 0, best_j = 0;
+    if (pv.nrows > 0 && pv.ncols > 0) {
+        const int k = (pv.ncols + 31) >> 5;
+        chunk_dispatch<T, chunk_step(KMAX), KMAX>(k, pv, p + (size_t)pi * Lp * NCOL, Ps, lane, best, best_i, best_j);
+    }
+    // highest value, then the lowest row, then the lowest column
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(FULL, best, off);
+        const int oi = __shfl_xor_sync(FULL, best_i, off);
+        const int oj = __shfl_xor_sync(FULL, best_j, off);
+        if (ov > best || (ov == best && (oi < best_i || (oi == best_i && oj < best_j)))) {
+            best = ov;
+            best_i = oi;
+            best_j = oj;
+        }
+    }
+    if (lane == 0) {
+        best_out[pair] = best;
+        ei_out[pair] = best_i;
+        ej_out[pair] = best_j;
+    }
+}
+
+template <typename T, int KMAX>
+cudaError_t launch_chunk(const void* q, const void* p, const void* idx, const void* ends, const void* q_len,
+                         const void* p_len, void* best, void* ei, void* ej, int N, int Lq, int Lp, cudaStream_t s) {
+    auto kernel = sw_chunk_kernel<T, KMAX>;
+    const size_t smem = (size_t)WARPS * NCOL * 32 * KMAX * sizeof(T);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    kernel<<<(N + WARPS - 1) / WARPS, WARPS * 32, smem, s>>>(
+        static_cast<const int*>(q), static_cast<const T*>(p), static_cast<const int*>(idx),
+        static_cast<const int*>(ends), static_cast<const int*>(q_len), static_cast<const int*>(p_len),
+        static_cast<float*>(best), static_cast<int*>(ei), static_cast<int*>(ej), N, Lq, Lp);
+    return cudaGetLastError();
+}
+
+// KMAX per bucket: the smallest of 4, 8, 12, 16, 24, 32 that covers ceil(Lp / 32)
+template <typename T>
+cudaError_t launch_chunk_bucket(const void* q, const void* p, const void* idx, const void* ends, const void* q_len,
+                                const void* p_len, void* best, void* ei, void* ej, int N, int Lq, int Lp,
+                                cudaStream_t s) {
+    const int kneed = (Lp + 31) / 32;
+    if (kneed <= 4) return launch_chunk<T, 4>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
+    if (kneed <= 8) return launch_chunk<T, 8>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
+    if (kneed <= 12) return launch_chunk<T, 12>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
+    if (kneed <= 16) return launch_chunk<T, 16>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
+    if (kneed <= 24) return launch_chunk<T, 24>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
+    if (kneed <= 32) return launch_chunk<T, 32>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
+    return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Stages in shared memory when `scratch` is NULL (Lp <= 1024), else runs
-// over `n_warps` global scratch slots of 2 x ld floats each.
+// The register-chunk body when `scratch` is NULL (Lp <= 1024), else the
+// strip body over `n_warps` global scratch slots of 2 x ld floats each.
 extern "C" int sw_pairs_launch(const void* q, const void* p, const void* idx, const void* ends,
                                const void* q_len, const void* p_len, void* best, void* ei, void* ej,
                                void* scratch, int N, int Lq, int Lp, int ld, int is_bf16, int n_warps,
@@ -246,8 +501,8 @@ extern "C" int sw_pairs_launch(const void* q, const void* p, const void* idx, co
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (scratch == nullptr) {
-        err = is_bf16 ? launch<gt::bf16, true>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s)
-                      : launch<float, true>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s);
+        err = is_bf16 ? launch_chunk_bucket<gt::bf16>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s)
+                      : launch_chunk_bucket<float>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
     } else {
         err = is_bf16 ? launch<gt::bf16, false>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s)
                       : launch<float, false>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s);

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from genomad_torch.ops import protein_search as tps
 from genomad_torch.ops import sw
 from genomad_tpu.ops import protein_search as jps
@@ -81,6 +82,38 @@ def test_sw_forward_plain_matches_jax(rng, kind):
     else:
         np.testing.assert_allclose(best, ref_best, rtol=1e-5)
     assert (ref_best > 0).all()  # every pair aligns something
+
+
+@pytest.mark.parametrize("name", chip_smoke.SW_EDGE_CASES)
+def test_sw_edge_cases_match_jax(name):
+    """The edge cases of the kernel's register-chunk layout (equal maxima on
+    either side of a lane's chunk and in two rows, real lengths 1, 31, 33
+    and 257, fewer real columns than lanes, an all-negative profile, a
+    reverse pass): the plain version against ``_sw_forward`` on the gathered
+    operands, integral, bit-equal; chip_smoke.py's sw phase holds the kernel
+    against the plain version on the same inputs."""
+    case = chip_smoke.sw_edge_cases()[name]
+    all_q, all_p, idx, _ = case["bucket"]
+    q, p = all_q[idx[0]], all_p[idx[1]]
+    got = sw.sw_pairs_plain(_t(all_q), _t(all_p), _t(idx))
+    ref = _jax_forward(q, p)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r)
+    np.testing.assert_array_equal(sw.sw_forward_plain(_t(q), _t(p))[0].numpy(), ref[0])
+    if case["expect"] is not None:
+        assert [(float(b), int(i), int(j)) for b, i, j in zip(*ref)] == case["expect"]
+    if case["reverse"]:
+        ends = np.stack([ref[1], ref[2]])
+        # the reversed prefixes ending at the forward end cells, padded with
+        # code 20 and zero rows (_sw_rev_cov's operands)
+        tq = ends[0][:, None] - np.arange(q.shape[1])[None, :]
+        rq = np.where(tq >= 0, np.take_along_axis(q, np.maximum(tq, 0), 1), 20).astype(np.int32)
+        tp = ends[1][:, None] - np.arange(p.shape[1])[None, :]
+        rp = np.where((tp >= 0)[:, :, None], np.take_along_axis(p, np.maximum(tp, 0)[:, :, None], 1), 0.0).astype(np.float32)
+        rev = sw.sw_pairs_plain(_t(all_q), _t(all_p), _t(idx), ends=_t(ends.astype(np.int32)))
+        for g, r in zip(rev, _jax_forward(rq, rp)):
+            np.testing.assert_array_equal(g.numpy(), r)
+        np.testing.assert_array_equal(rev[0].numpy(), ref[0])  # the same alignment rescored
 
 
 def test_sw_plain_matches_pallas_interpret(rng):
