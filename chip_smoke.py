@@ -98,7 +98,9 @@ PEAK_F32_LANE_OPS = 33.5e12
 SW_DB_PROFILES = 20_000
 REAL_DB_PROFILES = 227_897  # the geNomad DB's profile count
 SW_PAIRS = 4096
-SW_BUCKETS = (128, 256, 384, 512)  # the 20,000-profile DB's buckets (lengths 60-400)
+# the 20,000-profile DB's buckets (lengths 60-400); 256 and 384 draw their
+# pairs first, so that they stay the pairs of the runs before 128 and 512 joined
+SW_BUCKETS = (256, 384, 128, 512)
 GENOME_MBP = 2.0
 N_SEARCH_QUERIES = 500
 N_HVH_CONTIGS = 3  # planted host-virus-host contigs in the end-to-end input
@@ -820,7 +822,7 @@ def sw_kernel_phase(results: dict, db) -> None:
     # timings at the annotate path's shapes: CUDA events, forward by bucket,
     # reverse and the full bucket at 256, the plain version at 256 and 384
     by_bucket = {}
-    for L in SW_BUCKETS:
+    for L in sorted(SW_BUCKETS):
         t = timed[L]
         ms_l = cuda_time(lambda: sw.sw_pairs(*t["args"], lengths=t["lengths"]), iters=20)
         bound_l, by_l = sw_bound(*t["args"], *t["lengths"], t["cells_f"])

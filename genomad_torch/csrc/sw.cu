@@ -80,7 +80,13 @@
 // horizontal gap is a warp inclusive prefix max (__shfl_up_sync) carried
 // across strips, shifted by one, and a warp reduction gives each row's max
 // and its first index. (STAGED = true, the profile and the H/F carries in
-// shared memory, was this design's body for Lp <= 1024.)
+// shared memory, was this design's body for Lp <= 1024; it is no longer
+// launched.)
+//
+// Tuning (genomad_torch/tools/tune_sw.py times every setting on the card):
+// CHUNK_WARPS = 2 pairs per block and bf16 profiles staged as bf16. Shared
+// memory, not the block size, bounds the warps per SM; f32 staging saves a
+// convert per score load but halves the warps per SM, and was slower.
 //
 // Both bodies:
 // - Reverse pass (ends != NULL): row t reads q[end_i - t] (code 20 past
@@ -92,6 +98,7 @@
 
 #include <cstdint>
 #include <limits>
+#include <type_traits>
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -283,6 +290,21 @@ cudaError_t launch(const void* q, const void* p, const void* idx, const void* en
 // ---------------------------------------------------------------------------
 
 constexpr float NEG_INF = -std::numeric_limits<float>::infinity();
+constexpr int CHUNK_WARPS = 2;       // pairs (warps) per block, where shared memory allows
+constexpr bool STAGE_F32 = false;    // bf16 profiles staged as f32 (no convert per score load)
+constexpr size_t SMEM_MAX = 232448;  // shared memory a block can use
+
+// the staged profile's element type
+template <typename T>
+using Staged = std::conditional_t<STAGE_F32, float, T>;
+
+// warps per block at KMAX: CHUNK_WARPS, halved until their profiles fit
+template <typename T, int KMAX>
+__host__ __device__ constexpr int chunk_warps() {
+    int w = CHUNK_WARPS;
+    while (w > 1 && (size_t)w * NCOL * 32 * KMAX * sizeof(Staged<T>) > SMEM_MAX) w /= 2;
+    return w;
+}
 
 // One pair's real extents and its operands' index arithmetic (the reverse
 // pass reads the reversed prefixes ending at (ei, ej)).
@@ -306,17 +328,18 @@ struct PairView {
 // One pair with K columns per lane (32 K >= ncols): stages the profile, runs
 // the rows, and leaves the lane's best (value, row, column).
 template <typename T, int K>
-__device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+__device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, Staged<T>* __restrict__ Ps,
                                            int lane, float& best, int& best_i, int& best_j) {
+    using S = Staged<T>;
     constexpr int LDK = 32 * K;  // staged elements per query code
     __syncwarp();  // the previous pair has read its profile
     for (int e = lane; e < LDK * NCOL; e += 32) {
         const int j = e / NCOL;
         const int code = e - j * NCOL;
-        T v = gt::from_float<T>(NEG_INF);
+        S v = gt::from_float<S>(NEG_INF);
         if (j < pv.ncols) {
             const int r = pv.prof_row(j);
-            v = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
+            v = gt::from_float<S>(r >= 0 ? gt::to_float(prow[(size_t)r * NCOL + code]) : 0.f);
         }
         Ps[code * LDK + (j % K) * 32 + j / K] = v;
     }
@@ -337,7 +360,7 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
     int code = pv.query_code(0);
     for (int i = 0; i < pv.nrows; ++i) {
         const int next = i + 1 < pv.nrows ? pv.query_code(i + 1) : PAD;
-        const T* s = Ps + code * LDK + lane;
+        const S* s = Ps + code * LDK + lane;
         const float up = __shfl_up_sync(FULL, H[K - 1], 1);
         float diag = lane == 0 ? 0.f : up;
         float P[K];  // running max of t over the chunk, through column c
@@ -388,7 +411,7 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
 __host__ __device__ constexpr int chunk_step(int kmax) { return kmax <= 12 ? 1 : kmax / 8; }
 
 template <typename T, int K, int KMAX>
-__device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+__device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, Staged<T>* __restrict__ Ps,
                                                int lane, float& best, int& best_i, int& best_j) {
     if constexpr (K >= KMAX) {
         chunk_pair<T, KMAX>(pv, prow, Ps, lane, best, best_i, best_j);
@@ -401,17 +424,17 @@ __device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const 
     }
 }
 
-template <typename T, int KMAX>
-__global__ void __launch_bounds__(WARPS * 32) sw_chunk_kernel(
+template <typename T, int KMAX, int W = chunk_warps<T, KMAX>()>
+__global__ void __launch_bounds__(W * 32) sw_chunk_kernel(
     const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
     const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
     float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out, int N, int Lq, int Lp) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const int pair = blockIdx.x * WARPS + warp;
+    const int pair = blockIdx.x * W + warp;
     if (pair >= N) return;
-    T* Ps = reinterpret_cast<T*>(smem_raw) + (size_t)warp * NCOL * 32 * KMAX;
+    Staged<T>* Ps = reinterpret_cast<Staged<T>*>(smem_raw) + (size_t)warp * NCOL * 32 * KMAX;
 
     const int qi = idx[pair];
     const int pi = idx[N + pair];
@@ -462,13 +485,14 @@ __global__ void __launch_bounds__(WARPS * 32) sw_chunk_kernel(
 template <typename T, int KMAX>
 cudaError_t launch_chunk(const void* q, const void* p, const void* idx, const void* ends, const void* q_len,
                          const void* p_len, void* best, void* ei, void* ej, int N, int Lq, int Lp, cudaStream_t s) {
+    constexpr int W = chunk_warps<T, KMAX>();
     auto kernel = sw_chunk_kernel<T, KMAX>;
-    const size_t smem = (size_t)WARPS * NCOL * 32 * KMAX * sizeof(T);
+    const size_t smem = (size_t)W * NCOL * 32 * KMAX * sizeof(Staged<T>);
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
     }
-    kernel<<<(N + WARPS - 1) / WARPS, WARPS * 32, smem, s>>>(
+    kernel<<<(N + W - 1) / W, W * 32, smem, s>>>(
         static_cast<const int*>(q), static_cast<const T*>(p), static_cast<const int*>(idx),
         static_cast<const int*>(ends), static_cast<const int*>(q_len), static_cast<const int*>(p_len),
         static_cast<float*>(best), static_cast<int*>(ei), static_cast<int*>(ej), N, Lq, Lp);

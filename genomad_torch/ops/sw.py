@@ -33,8 +33,8 @@ GAP_EXTEND = 1.0
 N_COLS = 21  # 20 residues + the pad/unknown column
 PAD_CODE = 20
 
-# the kernel keeps a pair's H/F rows and its transposed profile in shared
-# memory up to this bucket length; longer buckets use a global scratch
+# up to this bucket length the kernel keeps a pair's profile in shared
+# memory and its H/F rows in registers; longer buckets use a global scratch
 _SMEM_MAX_LP = 1024
 _SCRATCH_BYTES = 1 << 28  # cap of the global scratch (longer buckets)
 _WARPS_PER_BLOCK = 2  # WARPS in csrc/sw.cu
