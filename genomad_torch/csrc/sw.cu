@@ -73,15 +73,13 @@
 //   diagonal shuffle, the scan and the query code; the search for the first
 //   column runs only in a row that raises a lane's best.
 //
-// Longer buckets (4096, 32768), `sw_kernel` with STAGED = false: lanes walk
-// the profile columns in strips of 32, row by row; H and F live in a global
+// Longer buckets (4096, 32768), the strip body (`sw_kernel`): lanes walk the
+// profile columns in strips of 32, row by row; H and F live in a global
 // scratch the wrapper allocates and the scores are read from global memory;
 // a grid-stride loop bounds the scratch by the number of warps. The
 // horizontal gap is a warp inclusive prefix max (__shfl_up_sync) carried
 // across strips, shifted by one, and a warp reduction gives each row's max
-// and its first index. (STAGED = true, the profile and the H/F carries in
-// shared memory, was this design's body for Lp <= 1024; it is no longer
-// launched.)
+// and its first index.
 //
 // Tuning (genomad_torch/tools/tune_sw.py times every setting on the card):
 // CHUNK_WARPS = 2 pairs per block and bf16 profiles staged as bf16. Shared
@@ -112,31 +110,19 @@ constexpr float GAP_OPEN = 11.f;
 constexpr float GAP_EXTEND = 1.f;
 constexpr unsigned FULL = 0xffffffffu;
 
-template <typename T, bool STAGED>
+template <typename T>
 __global__ void __launch_bounds__(WARPS * 32) sw_kernel(
     const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
     const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
     float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out,
     float* __restrict__ scratch, int N, int Lq, int Lp, int ld) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int gwarp = blockIdx.x * WARPS + warp;
     const int n_warps = gridDim.x * WARPS;
 
-    float* H;
-    float* Fc;
-    T* Ps = nullptr;  // staged profile, transposed: Ps[c * ld + j]
-    if (STAGED) {
-        const size_t per_warp = (size_t)ld * (2 * sizeof(float) + NCOL * sizeof(T));
-        unsigned char* base = smem_raw + warp * per_warp;
-        H = reinterpret_cast<float*>(base);
-        Fc = H + ld;
-        Ps = reinterpret_cast<T*>(Fc + ld);
-    } else {
-        H = scratch + (size_t)gwarp * 2 * ld;
-        Fc = H + ld;
-    }
+    float* H = scratch + (size_t)gwarp * 2 * ld;
+    float* Fc = H + ld;
 
     for (int pair = gwarp; pair < N; pair += n_warps) {
         const int qi = idx[pair];
@@ -173,14 +159,6 @@ __global__ void __launch_bounds__(WARPS * 32) sw_kernel(
         };
 
         __syncwarp();
-        if (STAGED) {
-            for (int k = lane; k < ncols_pad * NCOL; k += 32) {
-                const int j = k / NCOL;
-                const int c = k - j * NCOL;
-                const int r = j < ncols ? prof_row(j) : -1;
-                Ps[c * ld + j] = r >= 0 ? prow[(size_t)r * NCOL + c] : gt::from_float<T>(0.f);
-            }
-        }
         for (int j = lane; j < ncols_pad; j += 32) {
             H[j] = 0.f;
             Fc[j] = -CUDART_INF_F;
@@ -201,13 +179,8 @@ __global__ void __launch_bounds__(WARPS * 32) sw_kernel(
                 const bool valid = j < ncols;
                 const float hp = H[j];
                 const float fp = Fc[j];
-                float sc;
-                if (STAGED) {
-                    sc = gt::to_float(Ps[code * ld + j]);
-                } else {
-                    const int r = valid ? prof_row(j) : -1;
-                    sc = r >= 0 ? gt::to_float(prow[(size_t)r * NCOL + code]) : 0.f;
-                }
+                const int r = valid ? prof_row(j) : -1;
+                const float sc = r >= 0 ? gt::to_float(prow[(size_t)r * NCOL + code]) : 0.f;
                 const float up = __shfl_up_sync(FULL, hp, 1);
                 const float diag = lane == 0 ? carry_h : up;
                 carry_h = __shfl_sync(FULL, hp, 31);
@@ -258,26 +231,14 @@ __global__ void __launch_bounds__(WARPS * 32) sw_kernel(
     }
 }
 
-template <typename T, bool STAGED>
+template <typename T>
 cudaError_t launch(const void* q, const void* p, const void* idx, const void* ends, const void* q_len,
                    const void* p_len, void* best, void* ei, void* ej, void* scratch, int N, int Lq, int Lp,
                    int ld, int n_warps, cudaStream_t s) {
-    auto kernel = sw_kernel<T, STAGED>;
-    size_t smem = 0;
-    int blocks;
-    if (STAGED) {
-        smem = (size_t)WARPS * ld * (2 * sizeof(float) + NCOL * sizeof(T));
-        if (smem > 48 * 1024) {
-            cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (err != cudaSuccess) return err;
-        }
-        blocks = (N + WARPS - 1) / WARPS;
-    } else {
-        // the scratch holds n_warps slots: launch no more warps than that
-        blocks = n_warps / WARPS;
-        if (blocks < 1) return cudaErrorInvalidValue;
-    }
-    kernel<<<blocks, WARPS * 32, smem, s>>>(
+    // the scratch holds n_warps slots: launch no more warps than that
+    const int blocks = n_warps / WARPS;
+    if (blocks < 1) return cudaErrorInvalidValue;
+    sw_kernel<T><<<blocks, WARPS * 32, 0, s>>>(
         static_cast<const int*>(q), static_cast<const T*>(p), static_cast<const int*>(idx),
         static_cast<const int*>(ends), static_cast<const int*>(q_len), static_cast<const int*>(p_len),
         static_cast<float*>(best), static_cast<int*>(ei), static_cast<int*>(ej), static_cast<float*>(scratch),
@@ -528,8 +489,8 @@ extern "C" int sw_pairs_launch(const void* q, const void* p, const void* idx, co
         err = is_bf16 ? launch_chunk_bucket<gt::bf16>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s)
                       : launch_chunk_bucket<float>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
     } else {
-        err = is_bf16 ? launch<gt::bf16, false>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s)
-                      : launch<float, false>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s);
+        err = is_bf16 ? launch<gt::bf16>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s)
+                      : launch<float>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s);
     }
     return static_cast<int>(err);
 }
