@@ -37,9 +37,10 @@
 //   registers, with k = ceil(ncols / 32) chosen per pair from its real
 //   length (ncols), up to a compile-time KMAX per bucket: 4, 8, 12, 16, 24
 //   and 32 for Lp = 128, 256, 384, 512, 768 and 1024 (the smallest that
-//   covers ceil(Lp / 32)). Each k up to 12 has its own unrolled body; above
-//   12, k is rounded up to a multiple of KMAX / 8 (at most 8 bodies per
-//   bucket, at most one column in 13 of extra work). The previous row's H
+//   covers ceil(Lp / 32)). Each k has its own unrolled body up to KMAX = 12;
+//   in the wider buckets k is rounded up to a multiple of KMAX / 8, which
+//   bounds a kernel to 12 bodies (a short reverse pair there computes up to
+//   KMAX / 8 - 1 masked columns per lane). The previous row's H
 //   and F of the chunk live in registers; shared memory holds only the
 //   pair's staged profile.
 // - The staged profile is transposed for conflict-free reads: the score of
@@ -368,7 +369,8 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
     best_j = j0 + lc;
 }
 
-// Above 12 columns per lane, k is rounded up to a multiple of KMAX / 8.
+// Columns per lane are rounded up to a multiple of this step: one body per k
+// up to KMAX = 12, eight bodies above.
 __host__ __device__ constexpr int chunk_step(int kmax) { return kmax <= 12 ? 1 : kmax / 8; }
 
 template <typename T, int K, int KMAX>
