@@ -894,6 +894,7 @@ def _sw_edge_bucket(Lq, Lp, q_lens, p_lens, rng, planted=None):
 SW_EDGE_CASES = (
     "tie_row_cols_31_32_Lp64", "tie_row_cols_255_256_Lp384", "tie_row_cols_263_264_Lp384", "tie_two_rows",
     "lengths_1_31_33", "length_257", "ncols_5", "all_negative", "reverse_257",
+    "lengths_Lp512", "lengths_Lp768", "lengths_Lp1024",
 )
 
 
@@ -905,9 +906,12 @@ def sw_edge_cases() -> dict:
     None}. Equal maxima in one row must give the first column, equal maxima
     in two rows the earlier row; columns 31/32 at Lp = 64 (k = 2) and 263/264
     at Lp = 384 (k = 12) sit on either side of a lane's chunk, 255/256 at
-    Lp = 384 inside one. tests/test_torch_sw.py holds the plain version
-    against the JAX oracle on them; the sw phase holds the kernel against
-    the plain version."""
+    Lp = 384 inside one. The 512, 768 and 1024 buckets (KMAX 16, 24, 32;
+    k rounded up to a multiple of KMAX / 8) get real lengths that take k at
+    KMAX and k rounded up past ncols (500 and 200 columns at 512; 700, 500
+    and 130 at 768; 900 and 200 at 1024), forward and reverse.
+    tests/test_torch_sw.py holds the plain version against the JAX oracle
+    on them; the sw phase holds the kernel against the plain version."""
     rng = np.random.default_rng(SEED + 7)
     cases = {}
 
@@ -927,6 +931,10 @@ def sw_edge_cases() -> dict:
     add("ncols_5", _sw_edge_bucket(40, 64, [40, 5], [5, 5], rng))  # fewer real columns than lanes
     add("all_negative", _sw_edge_bucket(16, 64, [16], [50], rng, planted=[]), expect=[(0.0, 0, 0)])
     add("reverse_257", _sw_edge_bucket(384, 384, [257, 300], [257, 257], rng), reverse=True)
+    for name, L, q_lens, p_lens in (("lengths_Lp512", 512, [500, 210], [500, 200]),
+                                    ("lengths_Lp768", 768, [700, 520, 140], [700, 500, 130]),
+                                    ("lengths_Lp1024", 1024, [900, 210], [900, 200])):
+        add(name, _sw_edge_bucket(L, L, q_lens, p_lens, rng), reverse=True)
     return cases
 
 

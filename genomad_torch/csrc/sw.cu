@@ -82,10 +82,10 @@
 // across strips, shifted by one, and a warp reduction gives each row's max
 // and its first index.
 //
-// Tuning (genomad_torch/tools/tune_sw.py times every setting on the card):
-// CHUNK_WARPS = 2 pairs per block and bf16 profiles staged as bf16. Shared
-// memory, not the block size, bounds the warps per SM; f32 staging saves a
-// convert per score load but halves the warps per SM, and was slower.
+// Tuning: WARPS = 2 pairs per block in both bodies, and bf16 profiles are
+// staged as bf16. Shared memory, not the block size, bounds the warps per
+// SM; 4 or 8 pairs per block and f32 staging (no convert per score load,
+// half the warps per SM) were timed on the card and were slower.
 //
 // Both bodies:
 // - Reverse pass (ends != NULL): row t reads q[end_i - t] (code 20 past
@@ -97,7 +97,6 @@
 
 #include <cstdint>
 #include <limits>
-#include <type_traits>
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -110,6 +109,53 @@ constexpr int PAD = 20;
 constexpr float GAP_OPEN = 11.f;
 constexpr float GAP_EXTEND = 1.f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float NEG_INF = -std::numeric_limits<float>::infinity();
+
+// One pair's operands and real extents (both bodies): the profile row
+// `pi`, the rows and columns the pair runs, and the reverse pass's reads of
+// the reversed prefixes ending at (ei, ej).
+struct PairView {
+    const int* qrow;
+    int pi, Lq, Lp, ei, ej, nrows, ncols;
+    bool rev;
+
+    __device__ __forceinline__ int prof_row(int j) const {  // -1 = zero row
+        if (!rev) return j;
+        const int r = ej - j;
+        return (r >= 0 && r < Lp) ? r : -1;
+    }
+    __device__ __forceinline__ int query_code(int i) const {
+        if (!rev) return qrow[i];
+        const int r = ei - i;
+        return (r >= 0 && r < Lq) ? qrow[r] : PAD;
+    }
+};
+
+__device__ __forceinline__ PairView pair_view(const int* __restrict__ q, const int* __restrict__ idx,
+                                              const int* __restrict__ ends, const int* __restrict__ q_len,
+                                              const int* __restrict__ p_len, int pair, int N, int Lq, int Lp) {
+    const int qi = idx[pair];
+    PairView pv;
+    pv.pi = idx[N + pair];
+    pv.qrow = q + (size_t)qi * Lq;
+    pv.Lq = Lq;
+    pv.Lp = Lp;
+    pv.rev = ends != nullptr;
+    pv.ei = pv.rev ? ends[pair] : 0;
+    pv.ej = pv.rev ? ends[N + pair] : 0;
+    int nrows = Lq, ncols = Lp;
+    if (q_len != nullptr) {
+        nrows = min(nrows, q_len[qi]);
+        ncols = min(ncols, p_len[pv.pi]);
+        if (pv.rev) {
+            nrows = min(nrows, pv.ei + 1);
+            ncols = min(ncols, pv.ej + 1);
+        }
+    }
+    pv.nrows = max(nrows, 0);
+    pv.ncols = max(ncols, 0);
+    return pv;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32) sw_kernel(
@@ -126,38 +172,11 @@ __global__ void __launch_bounds__(WARPS * 32) sw_kernel(
     float* Fc = H + ld;
 
     for (int pair = gwarp; pair < N; pair += n_warps) {
-        const int qi = idx[pair];
-        const int pi = idx[N + pair];
-        const int* qrow = q + (size_t)qi * Lq;
-        const T* prow = p + (size_t)pi * Lp * NCOL;
-        const bool rev = ends != nullptr;
-        const int ei = rev ? ends[pair] : 0;
-        const int ej = rev ? ends[N + pair] : 0;
-        int nrows = Lq, ncols = Lp;
-        if (q_len != nullptr) {
-            nrows = min(nrows, q_len[qi]);
-            ncols = min(ncols, p_len[pi]);
-            if (rev) {
-                nrows = min(nrows, ei + 1);
-                ncols = min(ncols, ej + 1);
-            }
-        }
-        nrows = max(nrows, 0);
-        ncols = max(ncols, 0);
+        const PairView pv = pair_view(q, idx, ends, q_len, p_len, pair, N, Lq, Lp);
+        const T* prow = p + (size_t)pv.pi * Lp * NCOL;
+        const int nrows = pv.nrows, ncols = pv.ncols;
         const int nstrips = (ncols + 31) >> 5;
         const int ncols_pad = nstrips << 5;
-
-        // profile row of column j (reverse: end_j - j); -1 = zero row
-        auto prof_row = [&](int j) -> int {
-            if (!rev) return j;
-            const int r = ej - j;
-            return (r >= 0 && r < Lp) ? r : -1;
-        };
-        auto query_code = [&](int i) -> int {
-            if (!rev) return qrow[i];
-            const int r = ei - i;
-            return (r >= 0 && r < Lq) ? qrow[r] : PAD;
-        };
 
         __syncwarp();
         for (int j = lane; j < ncols_pad; j += 32) {
@@ -168,9 +187,9 @@ __global__ void __launch_bounds__(WARPS * 32) sw_kernel(
 
         float best = 0.f;
         int best_i = 0, best_j = 0;
-        int code = nrows > 0 ? query_code(0) : PAD;
+        int code = nrows > 0 ? pv.query_code(0) : PAD;
         for (int i = 0; i < nrows; ++i) {
-            const int next = i + 1 < nrows ? query_code(i + 1) : PAD;
+            const int next = i + 1 < nrows ? pv.query_code(i + 1) : PAD;
             float carry_h = 0.f;             // h_prev of the column left of the strip
             float carry_m = -CUDART_INF_F;   // running prefix max of t
             float lane_best = -CUDART_INF_F;
@@ -180,7 +199,7 @@ __global__ void __launch_bounds__(WARPS * 32) sw_kernel(
                 const bool valid = j < ncols;
                 const float hp = H[j];
                 const float fp = Fc[j];
-                const int r = valid ? prof_row(j) : -1;
+                const int r = valid ? pv.prof_row(j) : -1;
                 const float sc = r >= 0 ? gt::to_float(prow[(size_t)r * NCOL + code]) : 0.f;
                 const float up = __shfl_up_sync(FULL, hp, 1);
                 const float diag = lane == 0 ? carry_h : up;
@@ -251,57 +270,20 @@ cudaError_t launch(const void* q, const void* p, const void* idx, const void* en
 // Register-chunk body (Lp <= 1024)
 // ---------------------------------------------------------------------------
 
-constexpr float NEG_INF = -std::numeric_limits<float>::infinity();
-constexpr int CHUNK_WARPS = 2;       // pairs (warps) per block, where shared memory allows
-constexpr bool STAGE_F32 = false;    // bf16 profiles staged as f32 (no convert per score load)
-constexpr size_t SMEM_MAX = 232448;  // shared memory a block can use
-
-// the staged profile's element type
-template <typename T>
-using Staged = std::conditional_t<STAGE_F32, float, T>;
-
-// warps per block at KMAX: CHUNK_WARPS, halved until their profiles fit
-template <typename T, int KMAX>
-__host__ __device__ constexpr int chunk_warps() {
-    int w = CHUNK_WARPS;
-    while (w > 1 && (size_t)w * NCOL * 32 * KMAX * sizeof(Staged<T>) > SMEM_MAX) w /= 2;
-    return w;
-}
-
-// One pair's real extents and its operands' index arithmetic (the reverse
-// pass reads the reversed prefixes ending at (ei, ej)).
-struct PairView {
-    const int* qrow;
-    int Lq, Lp, ei, ej, nrows, ncols;
-    bool rev;
-
-    __device__ __forceinline__ int prof_row(int j) const {  // -1 = zero row
-        if (!rev) return j;
-        const int r = ej - j;
-        return (r >= 0 && r < Lp) ? r : -1;
-    }
-    __device__ __forceinline__ int query_code(int i) const {
-        if (!rev) return qrow[i];
-        const int r = ei - i;
-        return (r >= 0 && r < Lq) ? qrow[r] : PAD;
-    }
-};
-
 // One pair with K columns per lane (32 K >= ncols): stages the profile, runs
 // the rows, and leaves the lane's best (value, row, column).
 template <typename T, int K>
-__device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, Staged<T>* __restrict__ Ps,
+__device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
                                            int lane, float& best, int& best_i, int& best_j) {
-    using S = Staged<T>;
     constexpr int LDK = 32 * K;  // staged elements per query code
     __syncwarp();  // the previous pair has read its profile
     for (int e = lane; e < LDK * NCOL; e += 32) {
         const int j = e / NCOL;
         const int code = e - j * NCOL;
-        S v = gt::from_float<S>(NEG_INF);
+        T v = gt::from_float<T>(NEG_INF);
         if (j < pv.ncols) {
             const int r = pv.prof_row(j);
-            v = gt::from_float<S>(r >= 0 ? gt::to_float(prow[(size_t)r * NCOL + code]) : 0.f);
+            v = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
         }
         Ps[code * LDK + (j % K) * 32 + j / K] = v;
     }
@@ -322,7 +304,7 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
     int code = pv.query_code(0);
     for (int i = 0; i < pv.nrows; ++i) {
         const int next = i + 1 < pv.nrows ? pv.query_code(i + 1) : PAD;
-        const S* s = Ps + code * LDK + lane;
+        const T* s = Ps + code * LDK + lane;
         const float up = __shfl_up_sync(FULL, H[K - 1], 1);
         float diag = lane == 0 ? 0.f : up;
         float P[K];  // running max of t over the chunk, through column c
@@ -374,7 +356,7 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
 __host__ __device__ constexpr int chunk_step(int kmax) { return kmax <= 12 ? 1 : kmax / 8; }
 
 template <typename T, int K, int KMAX>
-__device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, Staged<T>* __restrict__ Ps,
+__device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
                                                int lane, float& best, int& best_i, int& best_j) {
     if constexpr (K >= KMAX) {
         chunk_pair<T, KMAX>(pv, prow, Ps, lane, best, best_i, best_j);
@@ -387,44 +369,24 @@ __device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const 
     }
 }
 
-template <typename T, int KMAX, int W = chunk_warps<T, KMAX>()>
-__global__ void __launch_bounds__(W * 32) sw_chunk_kernel(
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(WARPS * 32) sw_chunk_kernel(
     const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
     const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
     float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out, int N, int Lq, int Lp) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const int pair = blockIdx.x * W + warp;
+    const int pair = blockIdx.x * WARPS + warp;
     if (pair >= N) return;
-    Staged<T>* Ps = reinterpret_cast<Staged<T>*>(smem_raw) + (size_t)warp * NCOL * 32 * KMAX;
-
-    const int qi = idx[pair];
-    const int pi = idx[N + pair];
-    PairView pv;
-    pv.qrow = q + (size_t)qi * Lq;
-    pv.Lq = Lq;
-    pv.Lp = Lp;
-    pv.rev = ends != nullptr;
-    pv.ei = pv.rev ? ends[pair] : 0;
-    pv.ej = pv.rev ? ends[N + pair] : 0;
-    int nrows = Lq, ncols = Lp;
-    if (q_len != nullptr) {
-        nrows = min(nrows, q_len[qi]);
-        ncols = min(ncols, p_len[pi]);
-        if (pv.rev) {
-            nrows = min(nrows, pv.ei + 1);
-            ncols = min(ncols, pv.ej + 1);
-        }
-    }
-    pv.nrows = max(nrows, 0);
-    pv.ncols = max(ncols, 0);
+    T* Ps = reinterpret_cast<T*>(smem_raw) + (size_t)warp * NCOL * 32 * KMAX;
+    const PairView pv = pair_view(q, idx, ends, q_len, p_len, pair, N, Lq, Lp);
 
     float best = 0.f;
     int best_i = 0, best_j = 0;
     if (pv.nrows > 0 && pv.ncols > 0) {
         const int k = (pv.ncols + 31) >> 5;
-        chunk_dispatch<T, chunk_step(KMAX), KMAX>(k, pv, p + (size_t)pi * Lp * NCOL, Ps, lane, best, best_i, best_j);
+        chunk_dispatch<T, chunk_step(KMAX), KMAX>(k, pv, p + (size_t)pv.pi * Lp * NCOL, Ps, lane, best, best_i, best_j);
     }
     // highest value, then the lowest row, then the lowest column
 #pragma unroll
@@ -448,14 +410,14 @@ __global__ void __launch_bounds__(W * 32) sw_chunk_kernel(
 template <typename T, int KMAX>
 cudaError_t launch_chunk(const void* q, const void* p, const void* idx, const void* ends, const void* q_len,
                          const void* p_len, void* best, void* ei, void* ej, int N, int Lq, int Lp, cudaStream_t s) {
-    constexpr int W = chunk_warps<T, KMAX>();
     auto kernel = sw_chunk_kernel<T, KMAX>;
-    const size_t smem = (size_t)W * NCOL * 32 * KMAX * sizeof(Staged<T>);
+    // at most 2 x 21 x 1024 f32: 172 KB of the 227 KB a block may use
+    const size_t smem = (size_t)WARPS * NCOL * 32 * KMAX * sizeof(T);
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
     }
-    kernel<<<(N + W - 1) / W, W * 32, smem, s>>>(
+    kernel<<<(N + WARPS - 1) / WARPS, WARPS * 32, smem, s>>>(
         static_cast<const int*>(q), static_cast<const T*>(p), static_cast<const int*>(idx),
         static_cast<const int*>(ends), static_cast<const int*>(q_len), static_cast<const int*>(p_len),
         static_cast<float*>(best), static_cast<int*>(ei), static_cast<int*>(ej), N, Lq, Lp);

@@ -89,7 +89,8 @@ def test_sw_edge_cases_match_jax(name):
     """The edge cases of the kernel's register-chunk layout (equal maxima on
     either side of a lane's chunk and in two rows, real lengths 1, 31, 33
     and 257, fewer real columns than lanes, an all-negative profile, a
-    reverse pass): the plain version against ``_sw_forward`` on the gathered
+    reverse pass, and real lengths that take every chunk width of the 512,
+    768 and 1024 buckets): the plain version against ``_sw_forward`` on the gathered
     operands, integral, bit-equal; chip_smoke.py's sw phase holds the kernel
     against the plain version on the same inputs."""
     case = chip_smoke.sw_edge_cases()[name]
