@@ -146,6 +146,10 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
 def max_err(got, ref, dtype) -> float:
     """Max |got - ref|; raises when any element is outside the tolerance."""
     got, ref = got.float(), ref.float()
+    if got.shape != ref.shape:
+        raise AssertionError(f"kernel output shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    if got.numel() == 0:
+        return 0.0
     tol = TOL[dtype]
     if not torch.isfinite(got).all():
         raise AssertionError("kernel output is not finite")
@@ -235,20 +239,25 @@ def kernel_phase(results: dict) -> None:
         x = conv.embed_conv(tok, k1, bias)
         max_err(x, conv.embed_conv_plain(tok, k1, bias), dtype)
         max_err(conv.causal_conv(x, k2, bias), conv.causal_conv_plain(x, k2, bias), dtype)
-        patches = torch.from_numpy(igloo.random_patches(rng, vector_size=Lr)).to(dev)
-        w_patch = torch.from_numpy(rng.normal(0, 0.1, (igloo.N_PATCHES, 4, C)).astype(np.float32)).to(dev, dtype)
-        w_v = k2[0].contiguous()
-        mpi, pooled = patch_reduce.fused_reduce(x, patches, w_patch, w_v)
-        mpi_ref, pooled_ref = patch_reduce.fused_reduce_plain(x, patches, w_patch, w_v)
-        max_err(mpi, mpi_ref, torch.float32)
-        max_err(pooled, pooled_ref, dtype)
-        mpi3 = patch_reduce.patch_reduce(x, patches, w_patch)
-        max_err(mpi3, patch_reduce.patch_reduce_plain(x, patches, w_patch), torch.float32)
-        if not torch.equal(mpi3, mpi):
-            raise AssertionError(f"K3 mpi differs from K2 mpi at the ragged shape ({dtype})")
-        xc, wc = x[..., :40].contiguous(), w_patch[..., :40].contiguous()  # K3 takes any C
-        max_err(patch_reduce.patch_reduce(xc, patches, wc), patch_reduce.patch_reduce_plain(xc, patches, wc), torch.float32)
-    log("# ragged B=3 L=1001: all kernels agree with their plain versions (f32, bf16); K3 also at C=40")
+    log("# ragged B=3 L=1001: K5 and K4 agree with their plain versions (f32, bf16)")
+
+    # K2 and K3 at the edges of their persistent schedule, f32 and bf16
+    for name, (yn, pn, wpn, wvn) in fused_reduce_edge_cases().items():
+        patches = torch.from_numpy(pn).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w_patch, w_v = (torch.from_numpy(a).to(dev, dtype) for a in (yn, wpn, wvn))
+            mpi, pooled = patch_reduce.fused_reduce(x, patches, w_patch, w_v)
+            mpi_ref, pooled_ref = patch_reduce.fused_reduce_plain(x, patches, w_patch, w_v)
+            e = max(max_err(mpi, mpi_ref, torch.float32), max_err(pooled, pooled_ref, dtype))
+            mpi3 = patch_reduce.patch_reduce(x, patches, w_patch)
+            e = max(e, max_err(mpi3, patch_reduce.patch_reduce_plain(x, patches, w_patch), torch.float32))
+            if not torch.equal(mpi3, mpi):
+                raise AssertionError(f"K2 edge case {name} ({dtype}): K3 mpi differs from K2 mpi in {int((mpi3 != mpi).sum())} values")
+            if name == "B3_L1001":  # K3 takes any C
+                xc, wc = x[..., :40].contiguous(), w_patch[..., :40].contiguous()
+                e = max(e, max_err(patch_reduce.patch_reduce(xc, patches, wc), patch_reduce.patch_reduce_plain(xc, patches, wc), torch.float32))
+            torch.cuda.synchronize()
+            log(f"# K2 edge case {name} B={x.shape[0]} L={x.shape[1]} {str(dtype).split('.')[1]}: K2 and K3 {e:.3g} (K3 mpi bit-equal to K2's)")
 
     # K4's persistent schedule (tiles of 64 rows, two per block and round,
     # one block per SM) at its edges, bf16: one tile plus a ragged one; a
@@ -266,6 +275,11 @@ def kernel_phase(results: dict) -> None:
     if not torch.equal(first, again):
         raise AssertionError(f"K4 rerun differs from the first run in {int((first != again).sum())} values")
     log(f"# K4 rerun at B={B} L={L}: bit-equal")
+    y, patches, w_patch, w_v = entries["fused_reduce"]["args"]
+    first, again = patch_reduce.fused_reduce(y, patches, w_patch, w_v), patch_reduce.fused_reduce(y, patches, w_patch, w_v)
+    if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+        raise AssertionError("K2 rerun differs from the first run")
+    log(f"# K2 rerun at B={B} L={L}: mpi and pooled bit-equal")
 
     # timings at the main path's shapes, bf16
     tok, k1, b1 = entries["embed_conv"]["args"]
@@ -353,6 +367,38 @@ def kernel_phase(results: dict) -> None:
             f"# {name}: {ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms}, bound {bound_ms:.4f} by {bound_by}), "
             f"{t['launches_per_batch']} launch(es) per nn batch"
         )
+
+
+# name -> (B, L, the patches' positions drawn from [0, n))
+FUSED_EDGE_CASES = {
+    "B1_L70": (1, 70, 70),  # one tile plus a ragged one
+    "B133_L6016": (133, 6016, 5997),  # more batch rows than blocks: no multiple of the grid
+    "L5": (4, 5, 5),  # no pool window: mpi only
+    "B3_L1001": (3, 1001, 1001),
+    "fullest_tile": (2, 6016, 64),  # all 8,400 slots in the first 64 rows
+}
+
+
+def fused_reduce_edge_cases(max_rows: int | None = None) -> dict:
+    """Edge cases of K2/K3's persistent schedule (a block owns whole batch
+    rows and walks their 64-row tiles of 8 pool windows), at the model's C =
+    128 and 2,100 patches of 4: name -> numpy f32 (y (B, L, C), patches (P,
+    S) int32, w_patch (P, S, C), w_v (C, C)). Each batch row of y is drawn
+    from its own seed, so ``max_rows`` keeps the first rows of a case as
+    they are (tests/test_torch_kernels.py holds the plain versions against
+    JAX on them; the kernel phase holds the kernels against the plain
+    versions on every row)."""
+    C = 128
+    cases = {}
+    for k, (name, (B, L, n)) in enumerate(FUSED_EDGE_CASES.items()):
+        rng = np.random.default_rng([SEED + 9, k])
+        patches = np.stack([np.sort(rng.choice(n, 4, replace=False)) for _ in range(2100)]).astype(np.int32)
+        w_patch = rng.normal(0, 0.1, (2100, 4, C)).astype(np.float32)
+        w_v = rng.normal(0, 0.1, (C, C)).astype(np.float32)
+        rows = B if max_rows is None else min(B, max_rows)
+        y = np.stack([np.random.default_rng([SEED + 9, k, b]).normal(0, 1, (L, C)).astype(np.float32) for b in range(rows)])
+        cases[name] = (y, patches, w_patch, w_v)
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -838,6 +884,9 @@ def sw_kernel_phase(results: dict, db) -> None:
     plain = {L: cuda_time(lambda: sw.sw_pairs_plain(*timed[L]["args"]), iters=3, warmup=1) for L in (256, 384)}
     rev_ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx, ends=t["ends"], lengths=t["lengths"]), iters=20)
     full_ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx), iters=20)  # every bucket cell, no real lengths
+    rev_bound = sw_bound(all_q, all_p, idx, *t["lengths"], t["cells_r"])
+    full_lengths = tuple(torch.full_like(n, 256) for n in t["lengths"])
+    full_bound = sw_bound(all_q, all_p, idx, *full_lengths, SW_PAIRS * 256 * 256)
     results["sw_pairs"] = {
         "name": "sw_pairs",
         "route": "cuda",
@@ -855,7 +904,9 @@ def sw_kernel_phase(results: dict, db) -> None:
         "# sw timing (bf16, N=4096, real lengths): " + json.dumps({
             "forward_by_bucket": by_bucket, "plain_256_ms": plain[256], "plain_384_ms": plain[384],
             "forward_256_full_bucket_ms": full_ms, "full_bucket_gcells_s": SW_PAIRS * 256 * 256 / full_ms / 1e6,
+            "forward_256_full_bucket_bound_ms": full_bound[0], "forward_256_full_bucket_bound_by": full_bound[1],
             "reverse_256_ms": rev_ms, "reverse_256_gcells_s": t["cells_r"] / rev_ms / 1e6,
+            "reverse_256_bound_ms": rev_bound[0], "reverse_256_bound_by": rev_bound[1],
             "library_ms": "null: no PyTorch call computes Smith-Waterman",
         })
     )

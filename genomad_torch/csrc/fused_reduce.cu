@@ -8,40 +8,54 @@
 // the slots are added in order s = 0..S-1, as `fused_reduce` does. One
 // source, two entry points: the template switch POOLED turns the value
 // projection and max-pool on (K2, `fused_reduce_launch`) or off (K3,
-// `patch_reduce_launch`, mpi only). The patch reduction is the same code
-// with the same share of patches per block in both, so K3's mpi is K2's
-// bit for bit.
+// `patch_reduce_launch`, mpi only). The patch reduction is the same code in
+// both, so K3's mpi is K2's bit for bit.
 //
 // Replaces genomad_tpu/ops/patch_reduce.py `fused_reduce` (`_kernel_fused`
 // through `_fused_values`) and `patch_reduce` (`_kernel` through
-// `_slot_values`). Their tile plan (`build_plan`: slot weight tiles and
-// one-hot masks) only turned TPU gathers into MXU work; here the 4 rows of
-// each patch are gathered directly.
+// `_slot_values`).
 //
 // What bounds them on an H100: bytes. At B=128 K2 must read y once (197 MB,
-// 0.06 ms at 3.35 TB/s); the value projection is 25 GFLOP (0.03 ms in
-// bf16 on the tensor cores) and the patch dots 0.3 GFLOP. K3 reads only the
-// rows its patches name (most of them: 8,400 slots over 6,016 positions).
+// 0.06 ms at 3.35 TB/s); the value projection is 25 GFLOP (0.03 ms in bf16
+// on the tensor cores) and the patch dots 0.3 GFLOP.
 //
-// Design: one block per (tile of TR=64 positions, batch row). With POOLED
-// the block stages its y rows and w_v in shared memory, runs the
-// projection as bf16 tensor-core products (WMMA 16x16x16, f32
-// accumulation), stages the f32 products through shared memory and
-// max-pools 8 rows per output row. Then (both forms) the block reduces its
-// share of the patches (ceil(P / tiles) of them), one warp per patch: the
-// gathered rows come from L2, since the blocks of one batch row run
-// together and y for one window (1.5 MB in bf16) fits in the 50 MB L2.
+// Design (bf16, C = 128): a persistent grid of at most one block per SM; a
+// block owns whole batch rows (b = blockIdx.x, + gridDim.x, ...) and walks
+// each row's tiles of TM = 64 rows (8 pool windows, aligned to the pool).
+//  - w_v is loaded once per block and stays resident in shared memory as the
+//    MN-major wgmma B operand, in core matrices of 8 input x 8 output
+//    channels without swizzle, as K4 holds each tap of W.
+//  - A producer warp loads each y tile with one TMA box into a ring of NS
+//    buffers with full/empty mbarriers, in K4's [channel/8][row] cell layout
+//    (hopper.cuh `rows_tensor_map`); rows past L arrive as zeros and fall
+//    only in windows j >= L / 8, which are never written.
+//  - Two consumer warpgroups take alternate tiles. Each issues 8 `wgmma`
+//    m64n128k16 per tile (f32 accumulators in registers), then max-pools in
+//    registers: in the m64nN accumulator layout lane / 4 walks the 8 rows of
+//    one pool window, so three xor shuffles (16, 8, 4) reduce them, each
+//    halving what a lane keeps, on bf16x2 pairs (rounding is monotone, so
+//    rounding before the max gives the bits of rounding after it). A quad
+//    transpose then gives each lane 16 contiguous bytes to store.
+//  - The patch dots of the row are shared over its tiles: a warp per patch,
+//    8 lanes per slot, 16-byte loads of the gathered y row and of w_patch
+//    from L2.
+// No atomics: a rerun is bit-equal.
 //
-// Takes f32 (parity runs, projection on the CUDA cores) and bf16
-// (production); accumulates in f32.
+// Design (f32, parity runs; and K3 in bf16 at C != 128): one block per (tile
+// of TR positions, batch row); the projection on the CUDA cores in full
+// f32; one warp per patch with 2-byte loads.
+//
+// Takes f32 (parity runs) and bf16 (production); accumulates in f32.
 
-#include <mma.h>
+#include <algorithm>
+#include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace gt;
 
 constexpr int POOL = 8;
 constexpr int TR = 64;
@@ -71,85 +85,192 @@ __device__ __forceinline__ void reduce_patches(const T* __restrict__ yb, const i
 
 // ---- bf16 tensor-core path (C fixed at the model's 128 channels) ----
 constexpr int C = 128;
-constexpr int LDY = C + 16;  // 288-byte rows: every fragment pointer stays 32-byte aligned
-constexpr int LDV = C + 16;
-constexpr int LDO = C + 4;
-constexpr int VPR = C / 8;
-constexpr size_t SMEM_BF16 = (size_t)(TR * LDY + C * LDV) * sizeof(gt::bf16);
-static_assert((size_t)TR * LDO * sizeof(float) <= SMEM_BF16, "f32 staging reuses the operand tiles");
-static_assert(THREADS / 32 == (TR / 16) * 2, "8 warps: 4 row blocks x 2 column halves");
+constexpr int TM = 64;                     // rows per tile (one wgmma M, 8 pool windows)
+constexpr int CELL = 16;                   // bytes of 8 bf16 channels
+constexpr int KC = C / 8;                  // 16 cells per row
+constexpr int TILE_BYTES = KC * TM * CELL;  // 16,384
+constexpr int WV_BYTES = C * C * 2;        // 32,768
+constexpr int NS = 8;                      // ring buffers (even: consumer g takes buffers g, g + 2, ...)
+constexpr int CONSUMERS = 2;               // warpgroups, alternate tiles
+constexpr int THREADS_TC = CONSUMERS * 128 + 32;  // + a producer warp
+constexpr int BARS_BYTES = 2 * NS * 8;     // full[NS], empty[NS]
+static_assert(NS % CONSUMERS == 0, "a buffer always serves the same warpgroup");
+// w_v in shared memory: core matrix (ci/8, co/8), row ci%8 of 16 bytes
+constexpr int W_LBO = KC * 128;  // next 8 input channels (K direction)
+constexpr int W_SBO = 128;       // next 8 output channels (N direction)
+// a y tile in shared memory: cell (channel/8, row) at (channel/8 * TM + row) * 16
+constexpr int X_LBO = TM * CELL;  // next 8 channels (K direction)
+constexpr int X_SBO = 8 * CELL;   // next 8 rows (M direction)
 
-// The value projection of one tile of TR rows and its max-pool by 8 (K2).
-__device__ __forceinline__ void pool_projection_bf16(const gt::bf16* __restrict__ yb, const gt::bf16* __restrict__ wv,
-                                                     gt::bf16* __restrict__ pooled_b, int L, int tile, int n_pool) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    gt::bf16* ys = reinterpret_cast<gt::bf16*>(smem);
-    gt::bf16* vs = ys + TR * LDY;
-    float* os = reinterpret_cast<float*>(smem);
-    const int r0 = tile * TR;
-    for (int i = threadIdx.x; i < TR * VPR; i += THREADS) {
-        const int r = i / VPR;
-        const int v = i - r * VPR;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + r < L) val = *reinterpret_cast<const uint4*>(yb + (size_t)(r0 + r) * C + v * 8);
-        *reinterpret_cast<uint4*>(ys + r * LDY + v * 8) = val;
-    }
-    for (int i = threadIdx.x; i < C * VPR; i += THREADS) {
-        const int r = i / VPR;
-        const int v = i - r * VPR;
-        *reinterpret_cast<uint4*>(vs + r * LDV + v * 8) = *reinterpret_cast<const uint4*>(wv + (size_t)r * C + v * 8);
-    }
-    __syncthreads();
-
-    const int warp = threadIdx.x >> 5;
-    const int rb = warp & 3;    // 16-row block
-    const int half = warp >> 2;  // 64-column half
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+    const __nv_bfloat162 v =
+        __hmax2_nan(*reinterpret_cast<const __nv_bfloat162*>(&a), *reinterpret_cast<const __nv_bfloat162*>(&b));
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+// 8 channels of a row against 8 of a weight row, each 4 bf16x2 words, in f32
+__device__ __forceinline__ float dot8(uint4 y, uint4 w, float acc) {
+    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+    for (int i = 0; i < 4; ++i) {
+        acc = fmaf(__uint_as_float(ys[i] << 16), __uint_as_float(ws[i] << 16), acc);
+        acc = fmaf(__uint_as_float(ys[i] & 0xffff0000u), __uint_as_float(ws[i] & 0xffff0000u), acc);
+    }
+    return acc;
+}
+
+// The max over the 8 rows of each of the warp's two pool windows, from the
+// m64n128 accumulators (thread t of the warpgroup holds rows 16 (t / 32) +
+// t % 32 / 4 + 8 h, columns 8 j + 2 (t % 4) + {0, 1} in d[4 j + 2 h + {0,
+// 1}]), stored as bf16 rows of pooled. Each xor step keeps half of what a
+// lane holds: after them lane (r2, r1, r0, q) holds window 2 warp + r2,
+// column blocks 8 r1 + 4 r0 + {0..3} at columns 2 q, +1; a quad transpose
+// gives it column block 8 r1 + 4 r0 + q whole.
+__device__ __forceinline__ void pool_store(const float (&d)[64], gt::bf16* __restrict__ pooled_b, int window0,
+                                           int n_pool, int lane) {
+    const int q = lane & 3;
+    const bool r0 = lane & 4, r1 = lane & 8, r2 = lane & 16;
+    uint32_t a[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const uint32_t h0 = bf16x2_bits(d[4 * j], d[4 * j + 1]);
+        const uint32_t h1 = bf16x2_bits(d[4 * j + 2], d[4 * j + 3]);
+        a[j] = max_bf16x2(r2 ? h1 : h0, __shfl_xor_sync(0xffffffffu, r2 ? h0 : h1, 16));
+    }
+    uint32_t b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = max_bf16x2(r1 ? a[8 + j] : a[j], __shfl_xor_sync(0xffffffffu, r1 ? a[j] : a[8 + j], 8));
+    uint32_t c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = max_bf16x2(r0 ? b[4 + j] : b[j], __shfl_xor_sync(0xffffffffu, r0 ? b[j] : b[4 + j], 4));
+    quad_transpose(c, q);
+    const int window = window0 + (r2 ? 1 : 0);
+    const int block = (r1 ? 8 : 0) + (r0 ? 4 : 0) + q;
+    if (window < n_pool) *reinterpret_cast<uint4*>(pooled_b + (size_t)window * C + 8 * block) = make_uint4(c[0], c[1], c[2], c[3]);
+}
+
+// Patches [p_begin, p_end) of one batch row by the 128 threads of a
+// warpgroup: a warp per patch, 8 lanes per slot (S <= 4 at a time), each
+// lane 2 cells of 16 bytes of the gathered y row and of w_patch.
+__device__ __forceinline__ void reduce_patches_tc(const gt::bf16* __restrict__ yb, const int* __restrict__ patches,
+                                                  const gt::bf16* __restrict__ wp, float* __restrict__ mpi_b, int S,
+                                                  int p_begin, int p_end, int t) {
+    const int lane = t & 31, slot = lane >> 3, cell = 2 * (lane & 7);
 #pragma unroll 2
-    for (int kk = 0; kk < C / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, gt::bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, ys + rb * 16 * LDY + kk * 16, LDY);
+    for (int p = p_begin + t / 32; p < p_end; p += 4) {
+        float total = 0.f;
+        for (int s0 = 0; s0 < S; s0 += 4) {
+            const int s = s0 + slot;
+            float part = 0.f;
+            if (s < S) {
+                const uint4* yr = reinterpret_cast<const uint4*>(yb + (size_t)patches[p * S + s] * C) + cell;
+                const uint4* wr = reinterpret_cast<const uint4*>(wp + ((size_t)p * S + s) * C) + cell;
+                const uint4 y0 = yr[0], y1 = yr[1], w0 = wr[0], w1 = wr[1];
+                part = dot8(y1, w1, dot8(y0, w0, 0.f));
+            }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, gt::bf16, wmma::row_major> bm;
-            wmma::load_matrix_sync(bm, vs + kk * 16 * LDV + half * 64 + j * 16, LDV);
-            wmma::mma_sync(acc[j], a, bm, acc[j]);
+            for (int off = 4; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {  // the slots in order, from lanes 0, 8, 16, 24
+                const float v = __shfl_sync(0xffffffffu, part, 8 * k);
+                if (s0 + k < S) total += v;
+            }
         }
-    }
-    __syncthreads();  // operand tiles are dead; reuse them as f32 staging
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(os + rb * 16 * LDO + half * 64 + j * 16, acc[j], LDO, wmma::mem_row_major);
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < (TR / POOL) * C; i += THREADS) {
-        const int jr = i / C;
-        const int c = i - jr * C;
-        const int j = tile * (TR / POOL) + jr;
-        if (j >= n_pool) break;
-        float m = os[jr * POOL * LDO + c];
-#pragma unroll
-        for (int r = 1; r < POOL; ++r) m = fmaxf(m, os[(jr * POOL + r) * LDO + c]);
-        pooled_b[(size_t)j * C + c] = __float2bfloat16(m);
+        if (lane == 0) mpi_b[p] = total;
     }
 }
 
 template <bool POOLED>
-__global__ void __launch_bounds__(THREADS) fused_reduce_bf16(
-    const gt::bf16* __restrict__ y, const int* __restrict__ patches, const gt::bf16* __restrict__ wp,
-    const gt::bf16* __restrict__ wv, float* __restrict__ mpi, gt::bf16* __restrict__ pooled, int L, int P,
-    int S, int Cc, int n_pool, int ppb) {
-    const int b = blockIdx.y;
-    const int tile = blockIdx.x;
-    const int cc = POOLED ? C : Cc;  // the pooled form is built for C = 128
-    const gt::bf16* yb = y + (size_t)b * L * cc;
-    if constexpr (POOLED) pool_projection_bf16(yb, wv, pooled + (size_t)b * n_pool * C, L, tile, n_pool);
-    reduce_patches<gt::bf16>(yb, patches, wp, mpi + (size_t)b * P, S, cc, tile * ppb, min(P, (tile + 1) * ppb));
+__global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
+    const __grid_constant__ CUtensorMap ymap, const gt::bf16* __restrict__ y, const int* __restrict__ patches,
+    const gt::bf16* __restrict__ wp, const gt::bf16* __restrict__ wv, float* __restrict__ mpi,
+    gt::bf16* __restrict__ pooled, int B, int L, int P, int S, int n_pool, int tiles_per_seq, int ppt) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const uint32_t ws = smem_addr(smem);
+    const uint32_t ring = ws + (POOLED ? WV_BYTES : 0);
+    const uint32_t bars = ring + NS * TILE_BYTES;  // full[NS], then empty[NS]
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+
+    if constexpr (POOLED) {  // w_v once per block: global cell i = ci * KC + co / 8
+        for (int i = threadIdx.x; i < C * KC; i += THREADS_TC) {
+            const int cc = i % KC, ci = i / KC;
+            cp_async16(ws + (ci / 8) * W_LBO + cc * W_SBO + (ci % 8) * CELL, wv + (size_t)i * 8);
+        }
+        cp_async_commit();
+    }
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < 2 * NS; ++i) mbar_init(bars + 8 * i, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if constexpr (POOLED) {
+        cp_async_wait_all();
+        fence_async_shared();
+    }
+    __syncthreads();  // w_v and the barriers are ready
+
+    if (wg == CONSUMERS) {
+        // producer: one lane loads the block's tiles in order, each into its
+        // buffer once that is empty
+        if (t == 0) {
+            int i = 0;
+            for (int b = blockIdx.x; b < B; b += gridDim.x) {
+                for (int tile = 0; tile < tiles_per_seq; ++tile, ++i) {
+                    const int st = i % NS;
+                    const uint32_t full = bars + 8 * st, empty = bars + 8 * (NS + st);
+                    mbar_wait(empty, ((i / NS) & 1) ^ 1);
+                    mbar_expect(full, TILE_BYTES);
+                    asm volatile(
+                        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+                        " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(ring + st * TILE_BYTES),
+                        "l"(reinterpret_cast<uint64_t>(&ymap)), "r"(0), "r"(tile * TM), "r"(0), "r"(b), "r"(full)
+                        : "memory");
+                }
+            }
+        }
+        return;
+    }
+
+    const int lane = t % 32;
+    const int warp = t / 32;
+    float d[64];
+#pragma unroll
+    for (int k = 0; k < 64; ++k) d[k] = 0.f;
+    int i = 0;
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+        const gt::bf16* yb = y + (size_t)b * L * C;
+        for (int tile = 0; tile < tiles_per_seq; ++tile, ++i) {
+            if (i % CONSUMERS != wg) continue;
+            const int st = i % NS;
+            const uint32_t xs = ring + st * TILE_BYTES;
+            mbar_wait(bars + 8 * st, (i / NS) & 1);  // the tile's rows are in
+            if constexpr (POOLED) {
+                asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+                for (int kk = 0; kk < C / 16; ++kk)
+                    wgmma_m64n128k16(d, desc(xs + 2 * kk * X_LBO, X_LBO, X_SBO), desc(ws + 2 * kk * W_LBO, W_LBO, W_SBO), kk);
+                asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+            }
+            // the row's patches are shared over its tiles
+            reduce_patches_tc(yb, patches, wp, mpi + (size_t)b * P, S, tile * ppt, min(P, (tile + 1) * ppt), t);
+            if constexpr (POOLED) {
+                asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+                for (int k = 0; k < 64; ++k) asm volatile("" : "+f"(d[k])::"memory");
+            }
+            wg_barrier(wg);                                  // every warp is done with the buffer:
+            if (t == 0) mbar_arrive(bars + 8 * (NS + st));  // it is free for the next tile
+            if constexpr (POOLED) pool_store(d, pooled + (size_t)b * n_pool * C, tile * (TM / POOL) + 2 * warp, n_pool, lane);
+        }
+    }
 }
 
-// ---- f32 path (parity runs; pooled: any C with TR * C floats <= 48 KB) ----
+// ---- generic paths: f32 (parity runs; pooled: any C with TR * C floats <=
+// 48 KB), and K3 in bf16 at C != 128 ----
 template <bool POOLED>
 __global__ void __launch_bounds__(THREADS) fused_reduce_f32(
     const float* __restrict__ y, const int* __restrict__ patches, const float* __restrict__ wp,
@@ -184,35 +305,50 @@ __global__ void __launch_bounds__(THREADS) fused_reduce_f32(
     reduce_patches<float>(yb, patches, wp, mpi + (size_t)b * P, S, Cf, tile * ppb, min(P, (tile + 1) * ppb));
 }
 
+__global__ void __launch_bounds__(THREADS) patch_reduce_bf16(const gt::bf16* __restrict__ y,
+                                                             const int* __restrict__ patches,
+                                                             const gt::bf16* __restrict__ wp, float* __restrict__ mpi,
+                                                             int L, int P, int S, int Cc, int ppb) {
+    const int b = blockIdx.y;
+    const int tile = blockIdx.x;
+    reduce_patches<gt::bf16>(y + (size_t)b * L * Cc, patches, wp, mpi + (size_t)b * P, S, Cc, tile * ppb,
+                             min(P, (tile + 1) * ppb));
+}
+
 }  // namespace
 
-// Both entry points share the grid: one block per (tile of TR rows, batch
-// row), each reducing the same ceil(P / tiles) patches.
 template <bool POOLED>
 static int launch(const void* y, const void* patches, const void* wp, const void* wv, void* mpi, void* pooled, int B,
                   int L, int P, int S, int Cin, int is_bf16, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int tiles = (L + TR - 1) / TR;
-    const int ppb = (P + tiles - 1) / tiles;
+    const int ppb = (P + tiles - 1) / tiles;  // patches per tile of a row
     const int n_pool = L / POOL;
-    const dim3 grid(tiles, B);
-    if (is_bf16) {
-        size_t smem = 0;
-        if (POOLED) {
-            if (Cin != C) return static_cast<int>(cudaErrorInvalidValue);
-            smem = SMEM_BF16;
-            cudaError_t err = cudaFuncSetAttribute(fused_reduce_bf16<POOLED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   static_cast<int>(smem));
-            if (err != cudaSuccess) return static_cast<int>(err);
-        }
-        fused_reduce_bf16<POOLED><<<grid, THREADS, smem, s>>>(
-            static_cast<const gt::bf16*>(y), static_cast<const int*>(patches), static_cast<const gt::bf16*>(wp),
-            static_cast<const gt::bf16*>(wv), static_cast<float*>(mpi), static_cast<gt::bf16*>(pooled), L, P, S, Cin,
-            n_pool, ppb);
+    if (is_bf16 && Cin == C) {
+        int dev = 0, sms = 0;
+        CUtensorMap map;
+        const size_t smem = (POOLED ? WV_BYTES : 0) + NS * TILE_BYTES + BARS_BYTES;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(fused_reduce_tc<POOLED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+        if (err == cudaSuccess) err = gt::rows_tensor_map(&map, y, B, L, TM);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        fused_reduce_tc<POOLED><<<std::min(sms, B), THREADS_TC, smem, s>>>(
+            map, static_cast<const gt::bf16*>(y), static_cast<const int*>(patches), static_cast<const gt::bf16*>(wp),
+            static_cast<const gt::bf16*>(wv), static_cast<float*>(mpi), static_cast<gt::bf16*>(pooled), B, L, P, S,
+            n_pool, tiles, ppb);
+    } else if (is_bf16) {  // K3 at any C
+        if (POOLED) return static_cast<int>(cudaErrorInvalidValue);
+        patch_reduce_bf16<<<dim3(tiles, B), THREADS, 0, s>>>(static_cast<const gt::bf16*>(y),
+                                                             static_cast<const int*>(patches),
+                                                             static_cast<const gt::bf16*>(wp), static_cast<float*>(mpi),
+                                                             L, P, S, Cin, ppb);
     } else {
         const size_t smem = POOLED ? (size_t)TR * Cin * sizeof(float) : 0;
         if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-        fused_reduce_f32<POOLED><<<grid, THREADS, smem, s>>>(
+        fused_reduce_f32<POOLED><<<dim3(tiles, B), THREADS, smem, s>>>(
             static_cast<const float*>(y), static_cast<const int*>(patches), static_cast<const float*>(wp),
             static_cast<const float*>(wv), static_cast<float*>(mpi), static_cast<float*>(pooled), L, P, S, Cin,
             n_pool, ppb);

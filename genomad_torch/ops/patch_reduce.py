@@ -67,6 +67,7 @@ def fused_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
     _build.require(w_v.shape == (C, C), "w_v must be (C, C)")
     if y.dtype == torch.bfloat16:
         _build.require(C == _build.TC_CHANNELS, f"the bf16 kernel takes C = {_build.TC_CHANNELS}")
+        _require_aligned(y, w_patch, w_v)
     else:
         _build.require(_TILE_ROWS * C * 4 <= 48 * 1024, "the f32 kernel takes C <= 192")
     mpi = torch.empty((B, P), dtype=torch.float32, device=y.device)
@@ -98,6 +99,8 @@ def patch_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor) 
     if not _build.on_cuda(y, patches, w_patch):
         return patch_reduce_plain(y, patches, w_patch)
     B, L, C, P, S = _check(y, patches, w_patch)
+    if y.dtype == torch.bfloat16 and C == _build.TC_CHANNELS:
+        _require_aligned(y, w_patch)
     mpi = torch.empty((B, P), dtype=torch.float32, device=y.device)
     if B == 0 or L == 0:
         return mpi
@@ -125,3 +128,9 @@ def _check(y, patches, w_patch, *weights):
     _build.require(y.dtype in _build.DTYPES and all(t.dtype == y.dtype for t in (w_patch, *weights)), "y and the weights must share a float32 or bfloat16 dtype")
     _build.require(all(t.is_contiguous() for t in (y, patches, w_patch, *weights)), "inputs must be contiguous")
     return B, L, C, P, S
+
+
+def _require_aligned(*tensors):
+    """The bf16 tensor-core body reads y by TMA and w_patch and w_v in 16-byte
+    cells."""
+    _build.require(all(t.data_ptr() % 16 == 0 for t in tensors), "the bf16 kernel takes 16-byte aligned inputs")

@@ -69,7 +69,8 @@ def _build_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
         d = root / str(i)
         d.mkdir(parents=True)
         (d / "causal_conv.cu").write_text(text)
-        shutil.copy(_build.CSRC / "common.cuh", d)
+        for header in _build.CSRC.glob("*.cuh"):
+            shutil.copy(header, d)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "causal_conv.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
     libs = {}
