@@ -209,11 +209,12 @@ def kernel_phase(results: dict) -> None:
             dtype,
         )
         ig = p["igloo1"]
-        mpi, pooled = patch_reduce.fused_reduce(h1, ig["patches"], ig["w_patch"], ig["w_v"])
+        ig["slots"] = patch_reduce.slot_table(ig["patches"])
+        mpi, pooled = patch_reduce.fused_reduce(h1, ig["patches"], ig["w_patch"], ig["w_v"], slots=ig["slots"])
         mpi_ref, pooled_ref = patch_reduce.fused_reduce_plain(h1, ig["patches"], ig["w_patch"], ig["w_v"])
         e2m = max_err(mpi, mpi_ref, torch.float32)  # mpi is f32 for both dtypes
         e2p = max_err(pooled, pooled_ref, dtype)
-        mpi3 = patch_reduce.patch_reduce(h1, ig["patches"], ig["w_patch"])
+        mpi3 = patch_reduce.patch_reduce(h1, ig["patches"], ig["w_patch"], slots=ig["slots"])
         e3 = max_err(mpi3, patch_reduce.patch_reduce_plain(h1, ig["patches"], ig["w_patch"]), torch.float32)
         if not torch.equal(mpi3, mpi):  # one code path: K3's mpi is K2's bit for bit
             raise AssertionError(f"K3 mpi differs from K2 mpi ({dtype}) in {int((mpi3 != mpi).sum())} values")
@@ -224,7 +225,7 @@ def kernel_phase(results: dict) -> None:
             entries = {
                 "embed_conv": dict(err=e5, args=(tokens, p["conv1"]["kernel"], p["conv1"]["bias"])),
                 "causal_conv": dict(err=max(e4, e4n), args=(h1, p["conv2"]["kernel"], p["conv2"]["bias"])),
-                "fused_reduce": dict(err=max(e2m, e2p), args=(h1, ig["patches"], ig["w_patch"], ig["w_v"])),
+                "fused_reduce": dict(err=max(e2m, e2p), args=(h1, ig["patches"], ig["w_patch"], ig["w_v"]), slots=ig["slots"]),
                 "patch_reduce": dict(err=e3, args=(h1, ig["patches"], ig["w_patch"])),
             }
 
@@ -276,7 +277,8 @@ def kernel_phase(results: dict) -> None:
         raise AssertionError(f"K4 rerun differs from the first run in {int((first != again).sum())} values")
     log(f"# K4 rerun at B={B} L={L}: bit-equal")
     y, patches, w_patch, w_v = entries["fused_reduce"]["args"]
-    first, again = patch_reduce.fused_reduce(y, patches, w_patch, w_v), patch_reduce.fused_reduce(y, patches, w_patch, w_v)
+    slots = entries["fused_reduce"]["slots"]
+    first, again = (patch_reduce.fused_reduce(y, patches, w_patch, w_v, slots=slots) for _ in range(2))
     if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
         raise AssertionError("K2 rerun differs from the first run")
     log(f"# K2 rerun at B={B} L={L}: mpi and pooled bit-equal")
@@ -312,7 +314,7 @@ def kernel_phase(results: dict) -> None:
             launches_per_batch=2,
         ),
         "fused_reduce": dict(
-            kernel=lambda: patch_reduce.fused_reduce(y, patches, w_patch, w_v),
+            kernel=lambda: patch_reduce.fused_reduce(y, patches, w_patch, w_v, slots=slots),
             plain=lambda: patch_reduce.fused_reduce_plain(y, patches, w_patch, w_v),
             library=None,
             bound=bound(
@@ -325,7 +327,7 @@ def kernel_phase(results: dict) -> None:
             launches_per_batch=2,
         ),
         "patch_reduce": dict(
-            kernel=lambda: patch_reduce.patch_reduce(y, patches, w_patch),
+            kernel=lambda: patch_reduce.patch_reduce(y, patches, w_patch, slots=slots),
             plain=lambda: patch_reduce.patch_reduce_plain(y, patches, w_patch),
             library=None,  # no single PyTorch call computes the patch reduction
             # y is read only at the rows the patches name

@@ -36,9 +36,15 @@
 //    halving what a lane keeps, on bf16x2 pairs (rounding is monotone, so
 //    rounding before the max gives the bits of rounding after it). A quad
 //    transpose then gives each lane 16 contiguous bytes to store.
-//  - The patch dots of the row are shared over its tiles: a warp per patch,
-//    8 lanes per slot, 16-byte loads of the gathered y row and of w_patch
-//    from L2.
+//  - The patch dots come from the staged tile, not from a second gather: a
+//    slot table built once from the patches (ops/patch_reduce.py
+//    `slot_table`) lists the (p, s) slots of each tile. While the products
+//    run, each thread of the warpgroup takes a slot of the tile, loads its
+//    w_patch row (256 bytes, 16 loads of 16 bytes in flight) and dots it
+//    with the y row's cells in shared memory, in f32. The block keeps its
+//    row's P S slot dots in shared memory (33.6 KB at 2,100 x 4) and, once
+//    both warpgroups have passed the row's last tile, sums each patch's
+//    slots in order s = 0..S-1 and stores mpi.
 // No atomics: a rerun is bit-equal.
 //
 // Design (f32, parity runs; and K3 in bf16 at C != 128): one block per (tile
@@ -153,46 +159,43 @@ __device__ __forceinline__ void pool_store(const float (&d)[64], gt::bf16* __res
     if (window < n_pool) *reinterpret_cast<uint4*>(pooled_b + (size_t)window * C + 8 * block) = make_uint4(c[0], c[1], c[2], c[3]);
 }
 
-// Patches [p_begin, p_end) of one batch row by the 128 threads of a
-// warpgroup: a warp per patch, 8 lanes per slot (S <= 4 at a time), each
-// lane 2 cells of 16 bytes of the gathered y row and of w_patch.
-__device__ __forceinline__ void reduce_patches_tc(const gt::bf16* __restrict__ yb, const int* __restrict__ patches,
-                                                  const gt::bf16* __restrict__ wp, float* __restrict__ mpi_b, int S,
-                                                  int p_begin, int p_end, int t) {
-    const int lane = t & 31, slot = lane >> 3, cell = 2 * (lane & 7);
-#pragma unroll 2
-    for (int p = p_begin + t / 32; p < p_end; p += 4) {
-        float total = 0.f;
-        for (int s0 = 0; s0 < S; s0 += 4) {
-            const int s = s0 + slot;
-            float part = 0.f;
-            if (s < S) {
-                const uint4* yr = reinterpret_cast<const uint4*>(yb + (size_t)patches[p * S + s] * C) + cell;
-                const uint4* wr = reinterpret_cast<const uint4*>(wp + ((size_t)p * S + s) * C) + cell;
-                const uint4 y0 = yr[0], y1 = yr[1], w0 = wr[0], w1 = wr[1];
-                part = dot8(y1, w1, dot8(y0, w0, 0.f));
-            }
+// The slot dots of one tile, read from the staged tile: thread k of the
+// warpgroup takes the tile's slots k, k + 128, ... of the slot table (each
+// entry (p S + s) * TM + row), loads the slot's w_patch row in 16 cells of
+// 16 bytes at once, reads the y row's cells from shared memory and stores
+// the f32 dot in slot_dots[p S + s].
+__device__ __forceinline__ void tile_slot_dots(const uint4* __restrict__ ys, const int* __restrict__ entries, int k0,
+                                               int k1, const gt::bf16* __restrict__ wp, float* __restrict__ slot_dots,
+                                               int t) {
+    for (int k = k0 + t; k < k1; k += 128) {
+        const int e = entries[k];
+        const int id = e / TM, row = e % TM;
+        const uint4* wr = reinterpret_cast<const uint4*>(wp + (size_t)id * C);
+        uint4 w[KC];
 #pragma unroll
-            for (int off = 4; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+        for (int c = 0; c < KC; ++c) w[c] = __ldg(wr + c);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {  // the slots in order, from lanes 0, 8, 16, 24
-                const float v = __shfl_sync(0xffffffffu, part, 8 * k);
-                if (s0 + k < S) total += v;
-            }
-        }
-        if (lane == 0) mpi_b[p] = total;
+        for (int c = 0; c < KC; ++c) acc[c % 4] = dot8(ys[c * TM + row], w[c], acc[c % 4]);
+        slot_dots[id] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
     }
 }
 
+// the 256 threads of the two consumer warpgroups (named barrier 3)
+__device__ __forceinline__ void consumers_barrier() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
+
 template <bool POOLED>
 __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
-    const __grid_constant__ CUtensorMap ymap, const gt::bf16* __restrict__ y, const int* __restrict__ patches,
-    const gt::bf16* __restrict__ wp, const gt::bf16* __restrict__ wv, float* __restrict__ mpi,
-    gt::bf16* __restrict__ pooled, int B, int L, int P, int S, int n_pool, int tiles_per_seq, int ppt) {
+    const __grid_constant__ CUtensorMap ymap,
+    const gt::bf16* __restrict__ wp, const gt::bf16* __restrict__ wv, const int* __restrict__ slots,
+    float* __restrict__ mpi, gt::bf16* __restrict__ pooled, int B, int P, int S, int n_pool, int tiles_per_seq,
+    int table_tiles) {
     extern __shared__ __align__(128) unsigned char smem[];
     const uint32_t ws = smem_addr(smem);
     const uint32_t ring = ws + (POOLED ? WV_BYTES : 0);
     const uint32_t bars = ring + NS * TILE_BYTES;  // full[NS], then empty[NS]
+    float* slot_dots = reinterpret_cast<float*>(smem + (bars - ws) + BARS_BYTES);  // P * S, one batch row's
+    const int* entries = slots + table_tiles + 1;  // after the tile offsets
     const int wg = threadIdx.x / 128;
     const int t = threadIdx.x % 128;
 
@@ -242,7 +245,6 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
     for (int k = 0; k < 64; ++k) d[k] = 0.f;
     int i = 0;
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
-        const gt::bf16* yb = y + (size_t)b * L * C;
         for (int tile = 0; tile < tiles_per_seq; ++tile, ++i) {
             if (i % CONSUMERS != wg) continue;
             const int st = i % NS;
@@ -255,8 +257,9 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
                     wgmma_m64n128k16(d, desc(xs + 2 * kk * X_LBO, X_LBO, X_SBO), desc(ws + 2 * kk * W_LBO, W_LBO, W_SBO), kk);
                 asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
             }
-            // the row's patches are shared over its tiles
-            reduce_patches_tc(yb, patches, wp, mpi + (size_t)b * P, S, tile * ppt, min(P, (tile + 1) * ppt), t);
+            if (tile < table_tiles)  // while the products run
+                tile_slot_dots(reinterpret_cast<const uint4*>(smem + (xs - ws)), entries, slots[tile], slots[tile + 1],
+                               wp, slot_dots, t);
             if constexpr (POOLED) {
                 asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
@@ -266,6 +269,14 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
             if (t == 0) mbar_arrive(bars + 8 * (NS + st));  // it is free for the next tile
             if constexpr (POOLED) pool_store(d, pooled + (size_t)b * n_pool * C, tile * (TM / POOL) + 2 * warp, n_pool, lane);
         }
+        // every slot dot of the row is in: sum each patch's slots in order
+        consumers_barrier();
+        for (int p = threadIdx.x; p < P; p += CONSUMERS * 128) {
+            float v = slot_dots[p * S];
+            for (int s = 1; s < S; ++s) v += slot_dots[p * S + s];
+            mpi[(size_t)b * P + p] = v;
+        }
+        consumers_barrier();  // before the next row's dots overwrite them
     }
 }
 
@@ -318,8 +329,9 @@ __global__ void __launch_bounds__(THREADS) patch_reduce_bf16(const gt::bf16* __r
 }  // namespace
 
 template <bool POOLED>
-static int launch(const void* y, const void* patches, const void* wp, const void* wv, void* mpi, void* pooled, int B,
-                  int L, int P, int S, int Cin, int is_bf16, void* stream) {
+static int launch(const void* y, const void* patches, const void* wp, const void* wv, const void* slots,
+                  void* mpi, void* pooled, int B, int L, int P, int S, int Cin, int table_tiles, int is_bf16,
+                  void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int tiles = (L + TR - 1) / TR;
     const int ppb = (P + tiles - 1) / tiles;  // patches per tile of a row
@@ -327,7 +339,8 @@ static int launch(const void* y, const void* patches, const void* wp, const void
     if (is_bf16 && Cin == C) {
         int dev = 0, sms = 0;
         CUtensorMap map;
-        const size_t smem = (POOLED ? WV_BYTES : 0) + NS * TILE_BYTES + BARS_BYTES;
+        const size_t smem = (POOLED ? WV_BYTES : 0) + NS * TILE_BYTES + BARS_BYTES + (size_t)P * S * sizeof(float);
+        if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
         cudaError_t err = cudaGetDevice(&dev);
         if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (err == cudaSuccess)
@@ -336,9 +349,8 @@ static int launch(const void* y, const void* patches, const void* wp, const void
         if (err == cudaSuccess) err = gt::rows_tensor_map(&map, y, B, L, TM);
         if (err != cudaSuccess) return static_cast<int>(err);
         fused_reduce_tc<POOLED><<<std::min(sms, B), THREADS_TC, smem, s>>>(
-            map, static_cast<const gt::bf16*>(y), static_cast<const int*>(patches), static_cast<const gt::bf16*>(wp),
-            static_cast<const gt::bf16*>(wv), static_cast<float*>(mpi), static_cast<gt::bf16*>(pooled), B, L, P, S,
-            n_pool, tiles, ppb);
+            map, static_cast<const gt::bf16*>(wp), static_cast<const gt::bf16*>(wv), static_cast<const int*>(slots),
+            static_cast<float*>(mpi), static_cast<gt::bf16*>(pooled), B, P, S, n_pool, tiles, table_tiles);
     } else if (is_bf16) {  // K3 at any C
         if (POOLED) return static_cast<int>(cudaErrorInvalidValue);
         patch_reduce_bf16<<<dim3(tiles, B), THREADS, 0, s>>>(static_cast<const gt::bf16*>(y),
@@ -356,13 +368,14 @@ static int launch(const void* y, const void* patches, const void* wp, const void
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int fused_reduce_launch(const void* y, const void* patches, const void* wp, const void* wv, void* mpi,
-                                   void* pooled, int B, int L, int P, int S, int Cin, int is_bf16, void* stream) {
-    return launch<true>(y, patches, wp, wv, mpi, pooled, B, L, P, S, Cin, is_bf16, stream);
+extern "C" int fused_reduce_launch(const void* y, const void* patches, const void* wp, const void* wv,
+                                   const void* slots, void* mpi, void* pooled, int B, int L, int P, int S, int Cin,
+                                   int table_tiles, int is_bf16, void* stream) {
+    return launch<true>(y, patches, wp, wv, slots, mpi, pooled, B, L, P, S, Cin, table_tiles, is_bf16, stream);
 }
 
 // K3: mpi only (no w_v, no pooled output).
-extern "C" int patch_reduce_launch(const void* y, const void* patches, const void* wp, void* mpi, int B, int L, int P,
-                                   int S, int Cin, int is_bf16, void* stream) {
-    return launch<false>(y, patches, wp, nullptr, mpi, nullptr, B, L, P, S, Cin, is_bf16, stream);
+extern "C" int patch_reduce_launch(const void* y, const void* patches, const void* wp, const void* slots, void* mpi,
+                                   int B, int L, int P, int S, int Cin, int table_tiles, int is_bf16, void* stream) {
+    return launch<false>(y, patches, wp, nullptr, slots, mpi, nullptr, B, L, P, S, Cin, table_tiles, is_bf16, stream);
 }

@@ -10,9 +10,11 @@ wrapper launches its kernel for CUDA tensors (or raises) and takes the plain
 version only for tensors on the CPU. ``<wrapper>.launches`` counts kernel
 launches.
 
-The JAX kernel's tile plan (``build_plan``) existed to avoid TPU gathers;
-only its results are kept: the folded per-slot weights ``w_patch`` (P, S, C)
-are gathered against the rows the patches name.
+The JAX kernel's tile plan (``build_plan``) turned TPU gathers into MXU
+work with one-hot masks. Its idea, the slots grouped by tile of y, is kept
+without the one-hot product: :func:`slot_table` lists each 64-row tile's
+(p, s) slots, and the bf16 kernel dots each slot's folded weights ``w_patch``
+(P, S, C) with the tile's row once the tile is in shared memory.
 """
 
 from __future__ import annotations
@@ -22,12 +24,33 @@ import torch
 from genomad_torch.ops import _build
 
 POOL = 8
-_TILE_ROWS = 64  # rows per block in the kernel (f32 smem: 64 x C floats)
+_TILE_ROWS = 64  # rows of y per tile in the kernels (f32 smem: 64 x C floats)
+# the bf16 kernel keeps one batch row's P * S slot dots in shared memory
+MAX_SLOTS = 16_384
 
 _SIGNATURES = {
-    "fused_reduce_launch": [_build.P] * 6 + [_build.I] * 6 + [_build.P],
-    "patch_reduce_launch": [_build.P] * 4 + [_build.I] * 6 + [_build.P],
+    "fused_reduce_launch": [_build.P] * 7 + [_build.I] * 7 + [_build.P],
+    "patch_reduce_launch": [_build.P] * 5 + [_build.I] * 7 + [_build.P],
 }
+
+
+def slot_table(patches: torch.Tensor, n_tiles: int | None = None) -> torch.Tensor:
+    """The (p, s) slots of ``patches`` grouped by the 64-row tile of y that
+    their position falls in, as the bf16 kernel reads them: int32
+    ``[start (n_tiles + 1) | entries (P * S)]``, where tile t's slots are
+    ``entries[start[t]:start[t + 1]]`` in (p, s) order, each entry ``(p * S
+    + s) * 64 + position % 64``. Positions must lie in [0, 64 n_tiles);
+    ``n_tiles`` defaults to the last tile that holds a slot (one host sync),
+    and the table serves any y whose positions cover the patches. Built on
+    the patches' device."""
+    if n_tiles is None:
+        n_tiles = int(patches.max()) // _TILE_ROWS + 1 if patches.numel() else 1
+    flat = patches.reshape(-1).long()
+    tile = flat // _TILE_ROWS
+    order = torch.argsort(tile, stable=True)
+    start = torch.searchsorted(tile[order], torch.arange(n_tiles + 1, device=patches.device))
+    entries = order * _TILE_ROWS + flat[order] % _TILE_ROWS
+    return torch.cat([start, entries]).to(torch.int32)
 
 
 def patch_reduce_plain(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor) -> torch.Tensor:
@@ -52,14 +75,16 @@ def fused_reduce_plain(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Te
     return mpi, pooled
 
 
-def fused_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, w_v: torch.Tensor):
+def fused_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, w_v: torch.Tensor, *, slots=None):
     """Patch reduction + value projection + max-pool by 8, in one pass over y.
 
     y: (B, L, C) float32 or bfloat16; patches: (P, S) int32 positions in
     [0, L) (the kernel trusts this range; the model checks it once when it
     is built); w_patch: (P, S, C) and w_v: (C, C) in y's dtype. Returns
     mpi (B, P) float32 and pooled (B, L // 8, C) in y's dtype. The bf16
-    kernel takes C = 128, the f32 kernel C <= 192.
+    kernel takes C = 128 and P * S <= MAX_SLOTS, and reads the patches
+    through ``slots``, their :func:`slot_table` (built here when it is not
+    given; trusted like the patches); the f32 kernel takes C <= 192.
     """
     if not _build.on_cuda(y, patches, w_patch, w_v):
         return fused_reduce_plain(y, patches, w_patch, w_v)
@@ -74,11 +99,12 @@ def fused_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
     pooled = torch.empty((B, L // POOL, C), dtype=y.dtype, device=y.device)
     if B == 0 or L == 0:
         return mpi, pooled
+    slots, table_tiles = _slots_for(y, patches, slots)
     lib = _build.load("fused_reduce", _SIGNATURES)
     with torch.cuda.device(y.device):
         err = lib.fused_reduce_launch(
-            y.data_ptr(), patches.data_ptr(), w_patch.data_ptr(), w_v.data_ptr(), mpi.data_ptr(), pooled.data_ptr(),
-            B, L, P, S, C, int(y.dtype == torch.bfloat16), _build.stream_ptr(y.device),
+            y.data_ptr(), patches.data_ptr(), w_patch.data_ptr(), w_v.data_ptr(), slots.data_ptr(), mpi.data_ptr(),
+            pooled.data_ptr(), B, L, P, S, C, table_tiles, int(y.dtype == torch.bfloat16), _build.stream_ptr(y.device),
         )
     _build.check(err, "fused_reduce")
     fused_reduce.launches += 1
@@ -88,13 +114,14 @@ def fused_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
 fused_reduce.launches = 0
 
 
-def patch_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor) -> torch.Tensor:
+def patch_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, *, slots=None) -> torch.Tensor:
     """The patch reduction alone: mpi (B, P) float32, as ``fused_reduce``
     computes it, without the value projection.
 
     y: (B, L, C) float32 or bfloat16; patches: (P, S) int32 positions in
     [0, L) (trusted, as in ``fused_reduce``); w_patch: (P, S, C) in y's
-    dtype. Any C.
+    dtype; ``slots`` as in ``fused_reduce``. Any C (bf16 at C = 128 takes
+    K2's body, with its limits).
     """
     if not _build.on_cuda(y, patches, w_patch):
         return patch_reduce_plain(y, patches, w_patch)
@@ -104,11 +131,12 @@ def patch_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor) 
     mpi = torch.empty((B, P), dtype=torch.float32, device=y.device)
     if B == 0 or L == 0:
         return mpi
+    slots, table_tiles = _slots_for(y, patches, slots)
     lib = _build.load("fused_reduce", _SIGNATURES)
     with torch.cuda.device(y.device):
         err = lib.patch_reduce_launch(
-            y.data_ptr(), patches.data_ptr(), w_patch.data_ptr(), mpi.data_ptr(),
-            B, L, P, S, C, int(y.dtype == torch.bfloat16), _build.stream_ptr(y.device),
+            y.data_ptr(), patches.data_ptr(), w_patch.data_ptr(), slots.data_ptr(), mpi.data_ptr(),
+            B, L, P, S, C, table_tiles, int(y.dtype == torch.bfloat16), _build.stream_ptr(y.device),
         )
     _build.check(err, "patch_reduce")
     patch_reduce.launches += 1
@@ -130,7 +158,24 @@ def _check(y, patches, w_patch, *weights):
     return B, L, C, P, S
 
 
-def _require_aligned(*tensors):
-    """The bf16 tensor-core body reads y by TMA and w_patch and w_v in 16-byte
-    cells."""
-    _build.require(all(t.data_ptr() % 16 == 0 for t in tensors), "the bf16 kernel takes 16-byte aligned inputs")
+def _require_aligned(y, w_patch, *weights):
+    """The checks of the bf16 tensor-core body (C = 128): it reads y by TMA
+    and w_patch and w_v in 16-byte cells, and keeps a row's P * S slot dots
+    in shared memory."""
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (y, w_patch, *weights)), "the bf16 kernel takes 16-byte aligned inputs")
+    _build.require(w_patch.shape[0] * w_patch.shape[1] <= MAX_SLOTS, f"the bf16 kernel takes P * S <= {MAX_SLOTS}")
+
+
+def _slots_for(y, patches, slots):
+    """(the slot table, its tile count) that the kernel reads: ``slots`` when
+    given (checked for type, device and size), else built for y's length.
+    Only the bf16 body at C = 128 reads it."""
+    P, S = patches.shape
+    if slots is None:
+        slots = slot_table(patches, -(-y.shape[1] // _TILE_ROWS))
+    _build.require(
+        slots.dtype == torch.int32 and slots.dim() == 1 and slots.is_contiguous() and slots.device == y.device
+        and slots.numel() >= P * S + 2,
+        "slots must be the patches' slot_table (int32, 1-D, on y's device)",
+    )
+    return slots, slots.numel() - 1 - P * S

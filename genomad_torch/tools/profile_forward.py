@@ -43,7 +43,7 @@ def forward_stages(model: igloo.IglooClassifier, bases: torch.Tensor) -> dict:
             conv.causal_conv(h1, model.conv2.kernel, model.conv2.bias), model.conv3.kernel, model.conv3.bias
         ),
         "igloo kernel (K2 fused_reduce + attention)": lambda: model._igloo_kernel(h1, ig),
-        "  patch_reduce alone (K3)": lambda: patch_reduce.patch_reduce(h1, ig.patches, ig.w_patch),
+        "  patch_reduce alone (K3)": lambda: patch_reduce.patch_reduce(h1, ig.patches, ig.w_patch, slots=ig.slots),
         "  value proj alone (torch.matmul)": lambda: torch.matmul(h1, ig.w_v),
         "head dense (first)": lambda: model._dense_bn_relu(feat, model.enc_dense, model.enc_bn),
     }

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from genomad_torch.models import igloo as tig
 from genomad_torch.ops import conv, patch_reduce
 from genomad_tpu.models import igloo as jig
@@ -140,6 +141,108 @@ def test_fused_reduce_plain_ragged_length(rng):
     np.testing.assert_allclose(mpi.numpy(), np.einsum("bpsc,psc->bp", y[:, patches], w_patch), rtol=1e-5, atol=1e-5)
     proj = (y[:, :56] @ w_v).reshape(B, 7, 8, C).max(2)
     np.testing.assert_allclose(pooled.numpy(), proj, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.FUSED_EDGE_CASES))
+def test_fused_reduce_edge_cases_match_jax(name):
+    """The edge cases of K2/K3's persistent schedule (one tile plus a ragged
+    one, more batch rows than blocks, no pool window, a ragged length, every
+    slot in the first tile), first two batch rows, f32: the plain versions
+    against JAX's Pallas ``fused_reduce`` in interpret mode where L is a
+    multiple of its 128-row tile, else against the einsum formula; the plain
+    K3 mpi is the plain K2 mpi exactly. chip_smoke.py's kernel phase holds
+    the kernels against the plain versions on every row, f32 and bf16."""
+    y, patches, w_patch, w_v = chip_smoke.fused_reduce_edge_cases(max_rows=2)[name]
+    B, L, C = y.shape
+    mpi, pooled = patch_reduce.fused_reduce_plain(_t(y), _t(patches), _t(w_patch), _t(w_v))
+    assert mpi.shape == (B, 2100) and pooled.shape == (B, L // 8, C)
+    assert torch.equal(patch_reduce.patch_reduce_plain(_t(y), _t(patches), _t(w_patch)), mpi)
+    if L % jpr.TILE == 0:
+        plan = jpr.build_plan(patches, w_patch, L)
+        mpi_ref, pooled_ref = jpr.fused_reduce(
+            jnp.asarray(y), plan.w_tiles, plan.onehot, plan.idx, jnp.asarray(w_v), interpret=True
+        )
+    else:
+        mpi_ref = np.einsum("bpsc,psc->bp", y[:, patches], w_patch)
+        n = L // 8 * 8
+        pooled_ref = (y[:, :n] @ w_v).reshape(B, L // 8, 8, C).max(2)
+    np.testing.assert_allclose(mpi.numpy(), np.asarray(mpi_ref), **REDUCE_TOL)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(pooled_ref), **REDUCE_TOL)
+
+
+def _table_cases():
+    edge = chip_smoke.fused_reduce_edge_cases(max_rows=1)
+    return {
+        "init_params": (tig.init_params(0)["igloo1"]["patches"], tig.L_PAD),
+        "fullest_tile": (edge["fullest_tile"][1], 6016),
+        "L1001": (edge["B3_L1001"][1], 1001),  # no multiple of 64
+    }
+
+
+@pytest.mark.parametrize("case", ["init_params", "fullest_tile", "L1001"])
+def test_slot_table_lists_each_slot_once_by_tile(case):
+    patches, L = _table_cases()[case]
+    P, S = patches.shape
+    n_tiles = -(-L // 64)
+    table = patch_reduce.slot_table(_t(patches), n_tiles).numpy()
+    assert table.dtype == np.int32 and table.shape == (n_tiles + 1 + P * S,)
+    start, entries = table[: n_tiles + 1], table[n_tiles + 1 :]
+    assert start[0] == 0 and start[-1] == P * S and (np.diff(start) >= 0).all()
+    ids, rows = entries // 64, entries % 64
+    np.testing.assert_array_equal(np.sort(ids), np.arange(P * S))  # each (p, s) once
+    flat = patches.reshape(-1)
+    for t in range(n_tiles):
+        k = slice(start[t], start[t + 1])
+        np.testing.assert_array_equal(flat[ids[k]], t * 64 + rows[k])  # the slot's own position, in tile t
+        assert (np.diff(ids[k]) > 0).all()  # in (p, s) order
+    assert (flat[ids] < L).all()
+    # the default tile count ends at the last tile that holds a slot
+    default = patch_reduce.slot_table(_t(patches)).numpy()
+    n_last = int(patches.max()) // 64 + 1
+    np.testing.assert_array_equal(default, np.concatenate([start[: n_last + 1], entries]))
+
+
+@pytest.mark.parametrize("case", ["init_params", "fullest_tile"])
+def test_slot_dots_through_the_table_equal_the_plain_bits(case, rng):
+    """One dot per slot, evaluated through the table as the kernel reads it
+    (tile t's row 64 t + row), summed over each patch's slots in s order:
+    the plain version's mpi bit for bit, f32 and bf16."""
+    patches, L = _table_cases()[case]
+    P, S = patches.shape
+    n_tiles = -(-L // 64)
+    table = patch_reduce.slot_table(_t(patches), n_tiles)
+    start, entries = table[: n_tiles + 1], table[n_tiles + 1 :].long()
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles), torch.diff(start.long()))
+    ids, pos = entries // 64, tile_of * 64 + entries % 64
+    y = _t(rng.normal(size=(2, L, 16)).astype(np.float32))
+    w_patch = _t(rng.normal(size=(P, S, 16)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        yt, wt = y.to(dtype), w_patch.to(dtype)
+        dots = torch.empty((2, P * S))
+        dots[:, ids] = (yt[:, pos].float() * wt.reshape(P * S, 16)[ids].float()).sum(-1)
+        dots = dots.view(2, P, S)
+        mpi = dots[..., 0]
+        for s in range(1, S):
+            mpi = mpi + dots[..., s]
+        assert torch.equal(mpi, patch_reduce.patch_reduce_plain(yt, _t(patches), wt))
+
+
+def test_kernel_checks_of_the_bf16_body():
+    """The bf16 body's own checks (the CPU path is taken first, so they are
+    called directly): a slot table of another type or size, and more slots
+    than a block keeps in shared memory."""
+    y = torch.zeros((2, 70, 128), dtype=torch.bfloat16)
+    patches = torch.zeros((7, 4), dtype=torch.int32)
+    table = patch_reduce.slot_table(patches, 2)
+    assert patch_reduce._slots_for(y, patches, table)[1] == 2
+    assert patch_reduce._slots_for(y, patches, None)[1] == 2  # built for L = 70
+    with pytest.raises(ValueError, match="slots must be"):
+        patch_reduce._slots_for(y, patches, table.long())
+    with pytest.raises(ValueError, match="slots must be"):
+        patch_reduce._slots_for(y, patches, table[:20])
+    big = torch.zeros((patch_reduce.MAX_SLOTS // 4 + 1, 4, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="P \\* S <="):
+        patch_reduce._require_aligned(y, big)
 
 
 def _wrapper_cases(rng):
