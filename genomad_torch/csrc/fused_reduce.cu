@@ -96,7 +96,7 @@ constexpr int CELL = 16;                   // bytes of 8 bf16 channels
 constexpr int KC = C / 8;                  // 16 cells per row
 constexpr int TILE_BYTES = KC * TM * CELL;  // 16,384
 constexpr int WV_BYTES = C * C * 2;        // 32,768
-constexpr int NS = 8;                      // ring buffers (even: consumer g takes buffers g, g + 2, ...)
+constexpr int NS = 6;                      // ring buffers (even: consumer g takes buffers g, g + 2, ...)
 constexpr int CONSUMERS = 2;               // warpgroups, alternate tiles
 constexpr int THREADS_TC = CONSUMERS * 128 + 32;  // + a producer warp
 constexpr int BARS_BYTES = 2 * NS * 8;     // full[NS], empty[NS]
@@ -159,25 +159,38 @@ __device__ __forceinline__ void pool_store(const float (&d)[64], gt::bf16* __res
     if (window < n_pool) *reinterpret_cast<uint4*>(pooled_b + (size_t)window * C + 8 * block) = make_uint4(c[0], c[1], c[2], c[3]);
 }
 
-// The slot dots of one tile, read from the staged tile: thread k of the
-// warpgroup takes the tile's slots k, k + 128, ... of the slot table (each
-// entry (p S + s) * TM + row), loads the slot's w_patch row in 16 cells of
-// 16 bytes at once, reads the y row's cells from shared memory and stores
-// the f32 dot in slot_dots[p S + s].
-__device__ __forceinline__ void tile_slot_dots(const uint4* __restrict__ ys, const int* __restrict__ entries, int k0,
-                                               int k1, const gt::bf16* __restrict__ wp, float* __restrict__ slot_dots,
-                                               int t) {
-    for (int k = k0 + t; k < k1; k += 128) {
-        const int e = entries[k];
-        const int id = e / TM, row = e % TM;
-        const uint4* wr = reinterpret_cast<const uint4*>(wp + (size_t)id * C);
-        uint4 w[KC];
+// The w_patch row of slot k of the slot table (entry (p S + s) * TM + row),
+// 16 loads of 16 bytes in flight
+__device__ __forceinline__ void load_slot_w(const int* entries, int k, const gt::bf16* __restrict__ wp,
+                                            uint4 (&w)[KC]) {
+    const uint4* wr = reinterpret_cast<const uint4*>(wp + (size_t)(entries[k] / TM) * C);
 #pragma unroll
-        for (int c = 0; c < KC; ++c) w[c] = __ldg(wr + c);
+    for (int c = 0; c < KC; ++c) w[c] = __ldg(wr + c);
+}
+
+// Thread t's first slot of a tile (slot start[tile] + t), if it has one:
+// its w_patch cells are loaded a tile ahead, while the tile before is done.
+__device__ __forceinline__ void prefetch_slot_w(const int* start, const int* entries, int table_tiles, int tile, int t,
+                                                const gt::bf16* __restrict__ wp, uint4 (&w)[KC]) {
+    if (tile < table_tiles && start[tile] + t < start[tile + 1]) load_slot_w(entries, start[tile] + t, wp, w);
+}
+
+// The slot dots of one tile, read from the staged tile: thread t of the
+// warpgroup takes the tile's slots start[tile] + t, + 128, ... (the first
+// with its w_patch cells already in w), dots each slot's w_patch row with
+// the y row's cells in shared memory, in f32, and stores the dot in
+// slot_dots[p S + s].
+__device__ __forceinline__ void tile_slot_dots(const uint4* ys, const int* start, const int* entries, int table_tiles,
+                                               int tile, const gt::bf16* __restrict__ wp, float* slot_dots, int t,
+                                               uint4 (&w)[KC]) {
+    if (tile >= table_tiles) return;
+    for (int k = start[tile] + t; k < start[tile + 1]; k += 128) {
+        if (k != start[tile] + t) load_slot_w(entries, k, wp, w);
+        const int row = entries[k] % TM;
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int c = 0; c < KC; ++c) acc[c % 4] = dot8(ys[c * TM + row], w[c], acc[c % 4]);
-        slot_dots[id] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        slot_dots[entries[k] / TM] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
     }
 }
 
@@ -195,9 +208,13 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
     const uint32_t ring = ws + (POOLED ? WV_BYTES : 0);
     const uint32_t bars = ring + NS * TILE_BYTES;  // full[NS], then empty[NS]
     float* slot_dots = reinterpret_cast<float*>(smem + (bars - ws) + BARS_BYTES);  // P * S, one batch row's
-    const int* entries = slots + table_tiles + 1;  // after the tile offsets
+    int* table = reinterpret_cast<int*>(slot_dots + P * S);  // the slot table, for the block's life
+    const int* start = table;
+    const int* entries = table + table_tiles + 1;  // after the tile offsets
     const int wg = threadIdx.x / 128;
     const int t = threadIdx.x % 128;
+
+    for (int k = threadIdx.x; k < table_tiles + 1 + P * S; k += THREADS_TC) table[k] = slots[k];
 
     if constexpr (POOLED) {  // w_v once per block: global cell i = ci * KC + co / 8
         for (int i = threadIdx.x; i < C * KC; i += THREADS_TC) {
@@ -214,7 +231,7 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
         cp_async_wait_all();
         fence_async_shared();
     }
-    __syncthreads();  // w_v and the barriers are ready
+    __syncthreads();  // w_v, the slot table and the barriers are ready
 
     if (wg == CONSUMERS) {
         // producer: one lane loads the block's tiles in order, each into its
@@ -243,6 +260,8 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
     float d[64];
 #pragma unroll
     for (int k = 0; k < 64; ++k) d[k] = 0.f;
+    uint4 w[KC];  // the w_patch cells of this thread's slot in the warpgroup's next tile
+    prefetch_slot_w(start, entries, table_tiles, wg % tiles_per_seq, t, wp, w);
     int i = 0;
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
         for (int tile = 0; tile < tiles_per_seq; ++tile, ++i) {
@@ -257,9 +276,11 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
                     wgmma_m64n128k16(d, desc(xs + 2 * kk * X_LBO, X_LBO, X_SBO), desc(ws + 2 * kk * W_LBO, W_LBO, W_SBO), kk);
                 asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
             }
-            if (tile < table_tiles)  // while the products run
-                tile_slot_dots(reinterpret_cast<const uint4*>(smem + (xs - ws)), entries, slots[tile], slots[tile + 1],
-                               wp, slot_dots, t);
+            // while the products run: the tile's slot dots, then the loads for
+            // the warpgroup's next tile (i + 2, the same or the next row)
+            tile_slot_dots(reinterpret_cast<const uint4*>(smem + (xs - ws)), start, entries, table_tiles, tile, wp,
+                           slot_dots, t, w);
+            prefetch_slot_w(start, entries, table_tiles, (tile + CONSUMERS) % tiles_per_seq, t, wp, w);
             if constexpr (POOLED) {
                 asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
@@ -339,7 +360,8 @@ static int launch(const void* y, const void* patches, const void* wp, const void
     if (is_bf16 && Cin == C) {
         int dev = 0, sms = 0;
         CUtensorMap map;
-        const size_t smem = (POOLED ? WV_BYTES : 0) + NS * TILE_BYTES + BARS_BYTES + (size_t)P * S * sizeof(float);
+        const size_t smem = (POOLED ? WV_BYTES : 0) + NS * TILE_BYTES + BARS_BYTES +
+                            ((size_t)P * S * 2 + table_tiles + 1) * sizeof(int);  // slot dots, slot table
         if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
         cudaError_t err = cudaGetDevice(&dev);
         if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -25,8 +25,9 @@ from genomad_torch.ops import _build
 
 POOL = 8
 _TILE_ROWS = 64  # rows of y per tile in the kernels (f32 smem: 64 x C floats)
-# the bf16 kernel keeps one batch row's P * S slot dots in shared memory
-MAX_SLOTS = 16_384
+# the bf16 kernel keeps the slot table and one batch row's P * S slot dots
+# in shared memory
+MAX_SLOTS = 12_288
 
 _SIGNATURES = {
     "fused_reduce_launch": [_build.P] * 7 + [_build.I] * 7 + [_build.P],
