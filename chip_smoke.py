@@ -209,7 +209,7 @@ def kernel_phase(results: dict) -> None:
             dtype,
         )
         ig = p["igloo1"]
-        ig["slots"] = patch_reduce.slot_table(ig["patches"])
+        ig["slots"] = patch_reduce.slot_table(ig["patches"], ig["w_patch"])
         mpi, pooled = patch_reduce.fused_reduce(h1, ig["patches"], ig["w_patch"], ig["w_v"], slots=ig["slots"])
         mpi_ref, pooled_ref = patch_reduce.fused_reduce_plain(h1, ig["patches"], ig["w_patch"], ig["w_v"])
         e2m = max_err(mpi, mpi_ref, torch.float32)  # mpi is f32 for both dtypes
@@ -369,6 +369,23 @@ def kernel_phase(results: dict) -> None:
             f"# {name}: {ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms}, bound {bound_ms:.4f} by {bound_by}), "
             f"{t['launches_per_batch']} launch(es) per nn batch"
         )
+    log("# K2 by part: " + json.dumps(fused_reduce_parts(y, patches, w_patch, w_v)))
+
+
+def fused_reduce_parts(y, patches, w_patch, w_v) -> dict:
+    """Where K2's time goes at the main path's shape: K2 and K3 with all of
+    the patches, with the first quarter of them and with none (K3 with none
+    streams y and does nothing else; K2 with none adds the products and the
+    pool), ms by CUDA events."""
+    from genomad_torch.ops import patch_reduce
+
+    out = {}
+    for share, P in (("all", patches.shape[0]), ("quarter", patches.shape[0] // 4), ("none", 0)):
+        p, wp = patches[:P].contiguous(), w_patch[:P].contiguous()
+        slots = patch_reduce.slot_table(p, wp, -(-y.shape[1] // 64))
+        out[f"K2_{share}_ms"] = cuda_time(lambda: patch_reduce.fused_reduce(y, p, wp, w_v, slots=slots), iters=20)
+        out[f"K3_{share}_ms"] = cuda_time(lambda: patch_reduce.patch_reduce(y, p, wp, slots=slots), iters=20)
+    return out
 
 
 # name -> (B, L, the patches' positions drawn from [0, n))

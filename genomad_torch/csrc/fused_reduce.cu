@@ -159,33 +159,34 @@ __device__ __forceinline__ void pool_store(const float (&d)[64], gt::bf16* __res
     if (window < n_pool) *reinterpret_cast<uint4*>(pooled_b + (size_t)window * C + 8 * block) = make_uint4(c[0], c[1], c[2], c[3]);
 }
 
-// The w_patch row of slot k of the slot table (entry (p S + s) * TM + row),
-// 16 loads of 16 bytes in flight
-__device__ __forceinline__ void load_slot_w(const int* entries, int k, const gt::bf16* __restrict__ wp,
-                                            uint4 (&w)[KC]) {
-    const uint4* wr = reinterpret_cast<const uint4*>(wp + (size_t)(entries[k] / TM) * C);
+// The w_patch row of slot k of the slot table, 16 loads of 16 bytes in
+// flight: the table keeps the rows cell-major in its own slot order (cell c
+// of slot k at c * PS + k), so a warp's load of one cell for 32 neighbouring
+// slots reads 512 contiguous bytes.
+__device__ __forceinline__ void load_slot_w(const uint4* __restrict__ slot_w, int PS, int k, uint4 (&w)[KC]) {
 #pragma unroll
-    for (int c = 0; c < KC; ++c) w[c] = __ldg(wr + c);
+    for (int c = 0; c < KC; ++c) w[c] = __ldg(slot_w + (size_t)c * PS + k);
 }
 
 // Thread t's first slot of a tile (slot start[tile] + t), if it has one:
 // its w_patch cells are loaded a tile ahead, while the tile before is done.
-__device__ __forceinline__ void prefetch_slot_w(const int* start, const int* entries, int table_tiles, int tile, int t,
-                                                const gt::bf16* __restrict__ wp, uint4 (&w)[KC]) {
-    if (tile < table_tiles && start[tile] + t < start[tile + 1]) load_slot_w(entries, start[tile] + t, wp, w);
+__device__ __forceinline__ void prefetch_slot_w(const int* start, int table_tiles, int tile, int t,
+                                                const uint4* __restrict__ slot_w, int PS, uint4 (&w)[KC]) {
+    if (tile < table_tiles && start[tile] + t < start[tile + 1]) load_slot_w(slot_w, PS, start[tile] + t, w);
 }
 
 // The slot dots of one tile, read from the staged tile: thread t of the
 // warpgroup takes the tile's slots start[tile] + t, + 128, ... (the first
 // with its w_patch cells already in w), dots each slot's w_patch row with
 // the y row's cells in shared memory, in f32, and stores the dot in
-// slot_dots[p S + s].
+// slot_dots[p S + s]. The slots of a tile are ordered by position, so
+// neighbouring lanes read the same or neighbouring rows.
 __device__ __forceinline__ void tile_slot_dots(const uint4* ys, const int* start, const int* entries, int table_tiles,
-                                               int tile, const gt::bf16* __restrict__ wp, float* slot_dots, int t,
-                                               uint4 (&w)[KC]) {
+                                               int tile, const uint4* __restrict__ slot_w, int PS, float* slot_dots,
+                                               int t, uint4 (&w)[KC]) {
     if (tile >= table_tiles) return;
     for (int k = start[tile] + t; k < start[tile + 1]; k += 128) {
-        if (k != start[tile] + t) load_slot_w(entries, k, wp, w);
+        if (k != start[tile] + t) load_slot_w(slot_w, PS, k, w);
         const int row = entries[k] % TM;
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -199,9 +200,8 @@ __device__ __forceinline__ void consumers_barrier() { asm volatile("bar.sync 3, 
 
 template <bool POOLED>
 __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
-    const __grid_constant__ CUtensorMap ymap,
-    const gt::bf16* __restrict__ wp, const gt::bf16* __restrict__ wv, const int* __restrict__ slots,
-    float* __restrict__ mpi, gt::bf16* __restrict__ pooled, int B, int P, int S, int n_pool, int tiles_per_seq,
+    const __grid_constant__ CUtensorMap ymap, const gt::bf16* __restrict__ wv, const int* __restrict__ slots,
+    const uint4* __restrict__ slot_w, float* __restrict__ mpi, gt::bf16* __restrict__ pooled, int B, int P, int S, int n_pool, int tiles_per_seq,
     int table_tiles) {
     extern __shared__ __align__(128) unsigned char smem[];
     const uint32_t ws = smem_addr(smem);
@@ -261,7 +261,8 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
 #pragma unroll
     for (int k = 0; k < 64; ++k) d[k] = 0.f;
     uint4 w[KC];  // the w_patch cells of this thread's slot in the warpgroup's next tile
-    prefetch_slot_w(start, entries, table_tiles, wg % tiles_per_seq, t, wp, w);
+    const int PS = P * S;
+    prefetch_slot_w(start, table_tiles, wg % tiles_per_seq, t, slot_w, PS, w);
     int i = 0;
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
         for (int tile = 0; tile < tiles_per_seq; ++tile, ++i) {
@@ -278,9 +279,9 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
             }
             // while the products run: the tile's slot dots, then the loads for
             // the warpgroup's next tile (i + 2, the same or the next row)
-            tile_slot_dots(reinterpret_cast<const uint4*>(smem + (xs - ws)), start, entries, table_tiles, tile, wp,
-                           slot_dots, t, w);
-            prefetch_slot_w(start, entries, table_tiles, (tile + CONSUMERS) % tiles_per_seq, t, wp, w);
+            tile_slot_dots(reinterpret_cast<const uint4*>(smem + (xs - ws)), start, entries, table_tiles, tile, slot_w,
+                           PS, slot_dots, t, w);
+            prefetch_slot_w(start, table_tiles, (tile + CONSUMERS) % tiles_per_seq, t, slot_w, PS, w);
             if constexpr (POOLED) {
                 asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
@@ -351,7 +352,7 @@ __global__ void __launch_bounds__(THREADS) patch_reduce_bf16(const gt::bf16* __r
 
 template <bool POOLED>
 static int launch(const void* y, const void* patches, const void* wp, const void* wv, const void* slots,
-                  void* mpi, void* pooled, int B, int L, int P, int S, int Cin, int table_tiles, int is_bf16,
+                  const void* slot_w, void* mpi, void* pooled, int B, int L, int P, int S, int Cin, int table_tiles, int is_bf16,
                   void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int tiles = (L + TR - 1) / TR;
@@ -371,7 +372,7 @@ static int launch(const void* y, const void* patches, const void* wp, const void
         if (err == cudaSuccess) err = gt::rows_tensor_map(&map, y, B, L, TM);
         if (err != cudaSuccess) return static_cast<int>(err);
         fused_reduce_tc<POOLED><<<std::min(sms, B), THREADS_TC, smem, s>>>(
-            map, static_cast<const gt::bf16*>(wp), static_cast<const gt::bf16*>(wv), static_cast<const int*>(slots),
+            map, static_cast<const gt::bf16*>(wv), static_cast<const int*>(slots), static_cast<const uint4*>(slot_w),
             static_cast<float*>(mpi), static_cast<gt::bf16*>(pooled), B, P, S, n_pool, tiles, table_tiles);
     } else if (is_bf16) {  // K3 at any C
         if (POOLED) return static_cast<int>(cudaErrorInvalidValue);
@@ -391,13 +392,15 @@ static int launch(const void* y, const void* patches, const void* wp, const void
 }
 
 extern "C" int fused_reduce_launch(const void* y, const void* patches, const void* wp, const void* wv,
-                                   const void* slots, void* mpi, void* pooled, int B, int L, int P, int S, int Cin,
-                                   int table_tiles, int is_bf16, void* stream) {
-    return launch<true>(y, patches, wp, wv, slots, mpi, pooled, B, L, P, S, Cin, table_tiles, is_bf16, stream);
+                                   const void* slots, const void* slot_w, void* mpi, void* pooled, int B, int L, int P,
+                                   int S, int Cin, int table_tiles, int is_bf16, void* stream) {
+    return launch<true>(y, patches, wp, wv, slots, slot_w, mpi, pooled, B, L, P, S, Cin, table_tiles, is_bf16, stream);
 }
 
 // K3: mpi only (no w_v, no pooled output).
-extern "C" int patch_reduce_launch(const void* y, const void* patches, const void* wp, const void* slots, void* mpi,
-                                   int B, int L, int P, int S, int Cin, int table_tiles, int is_bf16, void* stream) {
-    return launch<false>(y, patches, wp, nullptr, slots, mpi, nullptr, B, L, P, S, Cin, table_tiles, is_bf16, stream);
+extern "C" int patch_reduce_launch(const void* y, const void* patches, const void* wp, const void* slots,
+                                   const void* slot_w, void* mpi, int B, int L, int P, int S, int Cin, int table_tiles,
+                                   int is_bf16, void* stream) {
+    return launch<false>(y, patches, wp, nullptr, slots, slot_w, mpi, nullptr, B, L, P, S, Cin, table_tiles, is_bf16,
+                         stream);
 }

@@ -204,13 +204,16 @@ class IglooClassifier(torch.nn.Module):
             raise ValueError("patch positions must be >= 0")
         self._max_patch = int(positions.max())
         for group in (self.igloo1, self.igloo2):  # what the bf16 patch kernel reads
-            group.register_buffer("slots", patch_reduce.slot_table(group.patches))
+            index, weights = patch_reduce.slot_table(group.patches, group.w_patch)
+            group.register_buffer("slot_index", index)
+            group.register_buffer("slot_weights", weights)
 
     def _igloo_kernel(self, y: torch.Tensor, p: torch.nn.Module) -> torch.Tensor:
         """IGLOO patch-attention kernel: (B, L, C) -> (B, C) (reference
         igloo.py:190-217); positions >= WINDOW_TOKENS are ignored."""
         pooled_len = min(y.shape[1], WINDOW_TOKENS) // POOL
-        mpi, pooled = patch_reduce.fused_reduce(y, p.patches, p.w_patch, p.w_v, slots=p.slots)
+        slots = patch_reduce.SlotTable(p.slot_index, p.slot_weights)
+        mpi, pooled = patch_reduce.fused_reduce(y, p.patches, p.w_patch, p.w_v, slots=slots)
         pooled = pooled[:, :pooled_len]
         mpi = mpi.to(self.dtype) + p.w_bias
         # f32 logits and attention sums, as JAX's preferred_element_type=f32

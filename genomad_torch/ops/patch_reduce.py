@@ -13,11 +13,14 @@ launches.
 The JAX kernel's tile plan (``build_plan``) turned TPU gathers into MXU
 work with one-hot masks. Its idea, the slots grouped by tile of y, is kept
 without the one-hot product: :func:`slot_table` lists each 64-row tile's
-(p, s) slots, and the bf16 kernel dots each slot's folded weights ``w_patch``
-(P, S, C) with the tile's row once the tile is in shared memory.
+(p, s) slots with their folded weights ``w_patch`` (P, S, C) in the same
+order, and the bf16 kernel dots each slot's weights with the tile's row
+once the tile is in shared memory.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -30,28 +33,39 @@ _TILE_ROWS = 64  # rows of y per tile in the kernels (f32 smem: 64 x C floats)
 MAX_SLOTS = 12_288
 
 _SIGNATURES = {
-    "fused_reduce_launch": [_build.P] * 7 + [_build.I] * 7 + [_build.P],
-    "patch_reduce_launch": [_build.P] * 5 + [_build.I] * 7 + [_build.P],
+    "fused_reduce_launch": [_build.P] * 8 + [_build.I] * 7 + [_build.P],
+    "patch_reduce_launch": [_build.P] * 6 + [_build.I] * 7 + [_build.P],
 }
 
 
-def slot_table(patches: torch.Tensor, n_tiles: int | None = None) -> torch.Tensor:
+class SlotTable(NamedTuple):
+    """The patches as the bf16 kernel reads them (:func:`slot_table`)."""
+
+    index: torch.Tensor  # int32 [start (n_tiles + 1) | entries (P * S)]
+    weights: torch.Tensor  # (C // 8, P * S, 8): w_patch's slot rows in entry order, by 8-channel cell
+
+
+def slot_table(patches: torch.Tensor, w_patch: torch.Tensor, n_tiles: int | None = None) -> SlotTable:
     """The (p, s) slots of ``patches`` grouped by the 64-row tile of y that
-    their position falls in, as the bf16 kernel reads them: int32
-    ``[start (n_tiles + 1) | entries (P * S)]``, where tile t's slots are
-    ``entries[start[t]:start[t + 1]]`` in (p, s) order, each entry ``(p * S
-    + s) * 64 + position % 64``. Positions must lie in [0, 64 n_tiles);
-    ``n_tiles`` defaults to the last tile that holds a slot (one host sync),
-    and the table serves any y whose positions cover the patches. Built on
-    the patches' device."""
+    their position falls in, and their weights in the same order.
+
+    ``index`` is int32 ``[start (n_tiles + 1) | entries (P * S)]``: tile t's
+    slots are ``entries[start[t]:start[t + 1]]``, ordered by position (then
+    by (p, s)), each entry ``(p * S + s) * 64 + position % 64``.
+    ``weights[c, k]`` holds channels 8c..8c+7 of entry k's row of ``w_patch``
+    (P, S, C), so that neighbouring slots' cells are neighbours in memory.
+    Positions must lie in [0, 64 n_tiles); ``n_tiles`` defaults to the last
+    tile that holds a slot (one host sync), and the table serves any y whose
+    positions cover the patches. Built on the patches' device."""
     if n_tiles is None:
         n_tiles = int(patches.max()) // _TILE_ROWS + 1 if patches.numel() else 1
     flat = patches.reshape(-1).long()
-    tile = flat // _TILE_ROWS
-    order = torch.argsort(tile, stable=True)
-    start = torch.searchsorted(tile[order], torch.arange(n_tiles + 1, device=patches.device))
+    order = torch.argsort(flat, stable=True)
+    start = torch.searchsorted(flat[order] // _TILE_ROWS, torch.arange(n_tiles + 1, device=patches.device))
     entries = order * _TILE_ROWS + flat[order] % _TILE_ROWS
-    return torch.cat([start, entries]).to(torch.int32)
+    C = w_patch.shape[-1]
+    weights = w_patch.reshape(-1, C)[order].reshape(-1, C // 8, 8).transpose(0, 1).contiguous()
+    return SlotTable(torch.cat([start, entries]).to(torch.int32), weights)
 
 
 def patch_reduce_plain(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor) -> torch.Tensor:
@@ -84,8 +98,8 @@ def fused_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
     is built); w_patch: (P, S, C) and w_v: (C, C) in y's dtype. Returns
     mpi (B, P) float32 and pooled (B, L // 8, C) in y's dtype. The bf16
     kernel takes C = 128 and P * S <= MAX_SLOTS, and reads the patches
-    through ``slots``, their :func:`slot_table` (built here when it is not
-    given; trusted like the patches); the f32 kernel takes C <= 192.
+    through ``slots``, ``slot_table(patches, w_patch)`` (built here when it
+    is not given; trusted like the patches); the f32 kernel takes C <= 192.
     """
     if not _build.on_cuda(y, patches, w_patch, w_v):
         return fused_reduce_plain(y, patches, w_patch, w_v)
@@ -100,11 +114,11 @@ def fused_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
     pooled = torch.empty((B, L // POOL, C), dtype=y.dtype, device=y.device)
     if B == 0 or L == 0:
         return mpi, pooled
-    slots, table_tiles = _slots_for(y, patches, slots)
+    index, weights, table_tiles = _slots_for(y, patches, w_patch, slots)
     lib = _build.load("fused_reduce", _SIGNATURES)
     with torch.cuda.device(y.device):
         err = lib.fused_reduce_launch(
-            y.data_ptr(), patches.data_ptr(), w_patch.data_ptr(), w_v.data_ptr(), slots.data_ptr(), mpi.data_ptr(),
+            y.data_ptr(), patches.data_ptr(), w_patch.data_ptr(), w_v.data_ptr(), index, weights, mpi.data_ptr(),
             pooled.data_ptr(), B, L, P, S, C, table_tiles, int(y.dtype == torch.bfloat16), _build.stream_ptr(y.device),
         )
     _build.check(err, "fused_reduce")
@@ -132,11 +146,11 @@ def patch_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
     mpi = torch.empty((B, P), dtype=torch.float32, device=y.device)
     if B == 0 or L == 0:
         return mpi
-    slots, table_tiles = _slots_for(y, patches, slots)
+    index, weights, table_tiles = _slots_for(y, patches, w_patch, slots)
     lib = _build.load("fused_reduce", _SIGNATURES)
     with torch.cuda.device(y.device):
         err = lib.patch_reduce_launch(
-            y.data_ptr(), patches.data_ptr(), w_patch.data_ptr(), slots.data_ptr(), mpi.data_ptr(),
+            y.data_ptr(), patches.data_ptr(), w_patch.data_ptr(), index, weights, mpi.data_ptr(),
             B, L, P, S, C, table_tiles, int(y.dtype == torch.bfloat16), _build.stream_ptr(y.device),
         )
     _build.check(err, "patch_reduce")
@@ -167,16 +181,26 @@ def _require_aligned(y, w_patch, *weights):
     _build.require(w_patch.shape[0] * w_patch.shape[1] <= MAX_SLOTS, f"the bf16 kernel takes P * S <= {MAX_SLOTS}")
 
 
-def _slots_for(y, patches, slots):
-    """(the slot table, its tile count) that the kernel reads: ``slots`` when
-    given (checked for type, device and size), else built for y's length.
-    Only the bf16 body at C = 128 reads it."""
+def _slots_for(y, patches, w_patch, slots):
+    """(index pointer, weights pointer, tile count) of the slot table the
+    bf16 body at C = 128 reads: ``slots`` when given (checked for type,
+    device and size), else built for y's length; null for the other
+    bodies, which gather the patches' rows themselves."""
+    B, L, C = y.shape
     P, S = patches.shape
+    if y.dtype != torch.bfloat16 or C != _build.TC_CHANNELS:
+        return 0, 0, 0
     if slots is None:
-        slots = slot_table(patches, -(-y.shape[1] // _TILE_ROWS))
+        slots = slot_table(patches, w_patch, -(-L // _TILE_ROWS))
+    index, weights = slots
     _build.require(
-        slots.dtype == torch.int32 and slots.dim() == 1 and slots.is_contiguous() and slots.device == y.device
-        and slots.numel() >= P * S + 2,
-        "slots must be the patches' slot_table (int32, 1-D, on y's device)",
+        index.dtype == torch.int32 and index.dim() == 1 and index.is_contiguous() and index.device == y.device
+        and index.numel() >= P * S + 2,
+        "slots must be slot_table(patches, w_patch): an int32 index on y's device",
     )
-    return slots, slots.numel() - 1 - P * S
+    _build.require(
+        weights.shape == (C // 8, P * S, 8) and weights.dtype == y.dtype and weights.is_contiguous()
+        and weights.device == y.device and weights.data_ptr() % 16 == 0,
+        "slots must be slot_table(patches, w_patch): weights (C // 8, P * S, 8) in y's dtype on y's device",
+    )
+    return index.data_ptr(), weights.data_ptr(), index.numel() - 1 - P * S

@@ -34,6 +34,7 @@ def forward_stages(model: igloo.IglooClassifier, bases: torch.Tensor) -> dict:
     tokens = igloo._tokens_from_bases(igloo._pad_bases(bases)).contiguous()
     h1 = conv.embed_conv(tokens, model.conv1.kernel, model.conv1.bias)
     ig = model.igloo1
+    slots = patch_reduce.SlotTable(ig.slot_index, ig.slot_weights)
     feat = torch.zeros((bases.shape[0], 2 * igloo.CHANNELS), dtype=model.dtype, device=bases.device)
     return {
         "full forward": lambda: model.forward_bases(bases),
@@ -43,7 +44,7 @@ def forward_stages(model: igloo.IglooClassifier, bases: torch.Tensor) -> dict:
             conv.causal_conv(h1, model.conv2.kernel, model.conv2.bias), model.conv3.kernel, model.conv3.bias
         ),
         "igloo kernel (K2 fused_reduce + attention)": lambda: model._igloo_kernel(h1, ig),
-        "  patch_reduce alone (K3)": lambda: patch_reduce.patch_reduce(h1, ig.patches, ig.w_patch, slots=ig.slots),
+        "  patch_reduce alone (K3)": lambda: patch_reduce.patch_reduce(h1, ig.patches, ig.w_patch, slots=slots),
         "  value proj alone (torch.matmul)": lambda: torch.matmul(h1, ig.w_v),
         "head dense (first)": lambda: model._dense_bn_relu(feat, model.enc_dense, model.enc_bn),
     }

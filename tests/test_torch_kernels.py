@@ -180,13 +180,15 @@ def _table_cases():
 
 
 @pytest.mark.parametrize("case", ["init_params", "fullest_tile", "L1001"])
-def test_slot_table_lists_each_slot_once_by_tile(case):
+def test_slot_table_lists_each_slot_once_by_tile(case, rng):
     patches, L = _table_cases()[case]
     P, S = patches.shape
     n_tiles = -(-L // 64)
-    table = patch_reduce.slot_table(_t(patches), n_tiles).numpy()
-    assert table.dtype == np.int32 and table.shape == (n_tiles + 1 + P * S,)
-    start, entries = table[: n_tiles + 1], table[n_tiles + 1 :]
+    w_patch = rng.normal(size=(P, S, 16)).astype(np.float32)
+    index, weights = patch_reduce.slot_table(_t(patches), _t(w_patch), n_tiles)
+    index = index.numpy()
+    assert index.dtype == np.int32 and index.shape == (n_tiles + 1 + P * S,)
+    start, entries = index[: n_tiles + 1], index[n_tiles + 1 :]
     assert start[0] == 0 and start[-1] == P * S and (np.diff(start) >= 0).all()
     ids, rows = entries // 64, entries % 64
     np.testing.assert_array_equal(np.sort(ids), np.arange(P * S))  # each (p, s) once
@@ -194,10 +196,14 @@ def test_slot_table_lists_each_slot_once_by_tile(case):
     for t in range(n_tiles):
         k = slice(start[t], start[t + 1])
         np.testing.assert_array_equal(flat[ids[k]], t * 64 + rows[k])  # the slot's own position, in tile t
-        assert (np.diff(ids[k]) > 0).all()  # in (p, s) order
+    key = flat[ids] * (P * S) + ids
+    assert (np.diff(key) > 0).all()  # by position, then (p, s)
     assert (flat[ids] < L).all()
+    # the weights: channels 8c..8c+7 of entry k's w_patch row at [c, k]
+    assert weights.shape == (2, P * S, 8) and weights.is_contiguous()
+    np.testing.assert_array_equal(weights.numpy(), w_patch.reshape(P * S, 2, 8)[ids].transpose(1, 0, 2))
     # the default tile count ends at the last tile that holds a slot
-    default = patch_reduce.slot_table(_t(patches)).numpy()
+    default = patch_reduce.slot_table(_t(patches), _t(w_patch)).index.numpy()
     n_last = int(patches.max()) // 64 + 1
     np.testing.assert_array_equal(default, np.concatenate([start[: n_last + 1], entries]))
 
@@ -205,21 +211,23 @@ def test_slot_table_lists_each_slot_once_by_tile(case):
 @pytest.mark.parametrize("case", ["init_params", "fullest_tile"])
 def test_slot_dots_through_the_table_equal_the_plain_bits(case, rng):
     """One dot per slot, evaluated through the table as the kernel reads it
-    (tile t's row 64 t + row), summed over each patch's slots in s order:
-    the plain version's mpi bit for bit, f32 and bf16."""
+    (tile t's row 64 t + row against the table's weights), summed over each
+    patch's slots in s order: the plain version's mpi bit for bit, f32 and
+    bf16."""
     patches, L = _table_cases()[case]
     P, S = patches.shape
     n_tiles = -(-L // 64)
-    table = patch_reduce.slot_table(_t(patches), n_tiles)
-    start, entries = table[: n_tiles + 1], table[n_tiles + 1 :].long()
-    tile_of = torch.repeat_interleave(torch.arange(n_tiles), torch.diff(start.long()))
-    ids, pos = entries // 64, tile_of * 64 + entries % 64
     y = _t(rng.normal(size=(2, L, 16)).astype(np.float32))
     w_patch = _t(rng.normal(size=(P, S, 16)).astype(np.float32))
     for dtype in (torch.float32, torch.bfloat16):
         yt, wt = y.to(dtype), w_patch.to(dtype)
+        index, weights = patch_reduce.slot_table(_t(patches), wt, n_tiles)
+        start, entries = index[: n_tiles + 1], index[n_tiles + 1 :].long()
+        tile_of = torch.repeat_interleave(torch.arange(n_tiles), torch.diff(start.long()))
+        ids, pos = entries // 64, tile_of * 64 + entries % 64
+        rows = weights.transpose(0, 1).reshape(P * S, 16)  # entry k's w_patch row
         dots = torch.empty((2, P * S))
-        dots[:, ids] = (yt[:, pos].float() * wt.reshape(P * S, 16)[ids].float()).sum(-1)
+        dots[:, ids] = (yt[:, pos].float() * rows.float()).sum(-1)
         dots = dots.view(2, P, S)
         mpi = dots[..., 0]
         for s in range(1, S):
@@ -229,17 +237,19 @@ def test_slot_dots_through_the_table_equal_the_plain_bits(case, rng):
 
 def test_kernel_checks_of_the_bf16_body():
     """The bf16 body's own checks (the CPU path is taken first, so they are
-    called directly): a slot table of another type or size, and more slots
-    than a block keeps in shared memory."""
+    called directly): a slot table of another type, size or dtype, and more
+    slots than a block keeps in shared memory; the other bodies read no
+    table."""
     y = torch.zeros((2, 70, 128), dtype=torch.bfloat16)
     patches = torch.zeros((7, 4), dtype=torch.int32)
-    table = patch_reduce.slot_table(patches, 2)
-    assert patch_reduce._slots_for(y, patches, table)[1] == 2
-    assert patch_reduce._slots_for(y, patches, None)[1] == 2  # built for L = 70
-    with pytest.raises(ValueError, match="slots must be"):
-        patch_reduce._slots_for(y, patches, table.long())
-    with pytest.raises(ValueError, match="slots must be"):
-        patch_reduce._slots_for(y, patches, table[:20])
+    w_patch = torch.zeros((7, 4, 128), dtype=torch.bfloat16)
+    index, weights = patch_reduce.slot_table(patches, w_patch, 2)
+    assert patch_reduce._slots_for(y, patches, w_patch, (index, weights))[2] == 2
+    assert patch_reduce._slots_for(y, patches, w_patch, None)[2] == 2  # built for L = 70
+    assert patch_reduce._slots_for(y.float(), patches, w_patch.float(), None) == (0, 0, 0)
+    for bad in ((index.long(), weights), (index[:20], weights), (index, weights.float()), (index, weights[:, :20])):
+        with pytest.raises(ValueError, match="slots must be"):
+            patch_reduce._slots_for(y, patches, w_patch, bad)
     big = torch.zeros((patch_reduce.MAX_SLOTS // 4 + 1, 4, 128), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="P \\* S <="):
         patch_reduce._require_aligned(y, big)
