@@ -104,9 +104,20 @@ static_assert(NS % CONSUMERS == 0, "a buffer always serves the same warpgroup");
 // w_v in shared memory: core matrix (ci/8, co/8), row ci%8 of 16 bytes
 constexpr int W_LBO = KC * 128;  // next 8 input channels (K direction)
 constexpr int W_SBO = 128;       // next 8 output channels (N direction)
-// a y tile in shared memory: cell (channel/8, row) at (channel/8 * TM + row) * 16
-constexpr int X_LBO = TM * CELL;  // next 8 channels (K direction)
-constexpr int X_SBO = 8 * CELL;   // next 8 rows (M direction)
+// a y tile in shared memory: two halves of 64 channels, each TM rows of 128
+// bytes in the 128-byte swizzle (hopper.cuh `rows_tensor_map_sw128`)
+constexpr int HALF_BYTES = TILE_BYTES / 2;
+
+// wgmma descriptor of a K-major operand in the 128-byte swizzle: rows of 128
+// bytes in 8-row atoms of 1,024 bytes (the stride offset); the atom is
+// 1,024-byte aligned, and a k step of 16 channels starts 32 bytes further
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// the 16-byte cell c (channels 8c..8c+7) of row r of a staged tile, in
+// 16-byte units
+__device__ __forceinline__ int tile_cell(int c, int r) { return (c / 8) * (HALF_BYTES / 16) + r * 8 + ((c % 8) ^ (r % 8)); }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -190,7 +201,7 @@ __device__ __forceinline__ void tile_slot_dots(const uint4* ys, const int* start
         const int row = entries[k] % TM;
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int c = 0; c < KC; ++c) acc[c % 4] = dot8(ys[c * TM + row], w[c], acc[c % 4]);
+        for (int c = 0; c < KC; ++c) acc[c % 4] = dot8(ys[tile_cell(c, row)], w[c], acc[c % 4]);
         slot_dots[entries[k] / TM] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
     }
 }
@@ -203,8 +214,11 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
     const __grid_constant__ CUtensorMap ymap, const gt::bf16* __restrict__ wv, const int* __restrict__ slots,
     const uint4* __restrict__ slot_w, float* __restrict__ mpi, gt::bf16* __restrict__ pooled, int B, int P, int S, int n_pool, int tiles_per_seq,
     int table_tiles) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const uint32_t ws = smem_addr(smem);
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    // the swizzled tiles need 1,024-byte alignment: everything is laid out
+    // from the first such address (the launch adds 1 KB for it)
+    const uint32_t ws = (smem_addr(smem_raw) + 1023) & ~1023u;
+    unsigned char* smem = smem_raw + (ws - smem_addr(smem_raw));
     const uint32_t ring = ws + (POOLED ? WV_BYTES : 0);
     const uint32_t bars = ring + NS * TILE_BYTES;  // full[NS], then empty[NS]
     float* slot_dots = reinterpret_cast<float*>(smem + (bars - ws) + BARS_BYTES);  // P * S, one batch row's
@@ -244,11 +258,12 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
                     const uint32_t full = bars + 8 * st, empty = bars + 8 * (NS + st);
                     mbar_wait(empty, ((i / NS) & 1) ^ 1);
                     mbar_expect(full, TILE_BYTES);
-                    asm volatile(
-                        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-                        " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(ring + st * TILE_BYTES),
-                        "l"(reinterpret_cast<uint64_t>(&ymap)), "r"(0), "r"(tile * TM), "r"(0), "r"(b), "r"(full)
-                        : "memory");
+                    for (int h = 0; h < 2; ++h)  // channels 0-63, 64-127
+                        asm volatile(
+                            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+                            " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(ring + st * TILE_BYTES + h * HALF_BYTES),
+                            "l"(reinterpret_cast<uint64_t>(&ymap)), "r"(64 * h), "r"(tile * TM), "r"(b), "r"(full)
+                            : "memory");
                 }
             }
         }
@@ -274,7 +289,8 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
                 asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
                 for (int kk = 0; kk < C / 16; ++kk)
-                    wgmma_m64n128k16(d, desc(xs + 2 * kk * X_LBO, X_LBO, X_SBO), desc(ws + 2 * kk * W_LBO, W_LBO, W_SBO), kk);
+                    wgmma_m64n128k16(d, desc_sw128(xs + (kk / 4) * HALF_BYTES + (kk % 4) * 32),
+                                     desc(ws + 2 * kk * W_LBO, W_LBO, W_SBO), kk);
                 asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
             }
             // while the products run: the tile's slot dots, then the loads for
@@ -361,15 +377,15 @@ static int launch(const void* y, const void* patches, const void* wp, const void
     if (is_bf16 && Cin == C) {
         int dev = 0, sms = 0;
         CUtensorMap map;
-        const size_t smem = (POOLED ? WV_BYTES : 0) + NS * TILE_BYTES + BARS_BYTES +
-                            ((size_t)P * S * 2 + table_tiles + 1) * sizeof(int);  // slot dots, slot table
+        const size_t smem = 1024 + (POOLED ? WV_BYTES : 0) + NS * TILE_BYTES + BARS_BYTES +
+                            ((size_t)P * S * 2 + table_tiles + 1) * sizeof(int);  // alignment, ..., slot dots, slot table
         if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
         cudaError_t err = cudaGetDevice(&dev);
         if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (err == cudaSuccess)
             err = cudaFuncSetAttribute(fused_reduce_tc<POOLED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
-        if (err == cudaSuccess) err = gt::rows_tensor_map(&map, y, B, L, TM);
+        if (err == cudaSuccess) err = gt::rows_tensor_map_sw128(&map, y, B, L, TM);
         if (err != cudaSuccess) return static_cast<int>(err);
         fused_reduce_tc<POOLED><<<std::min(sms, B), THREADS_TC, smem, s>>>(
             map, static_cast<const gt::bf16*>(wv), static_cast<const int*>(slots), static_cast<const uint4*>(slot_w),

@@ -92,21 +92,30 @@ __device__ __forceinline__ void mbar_wait(uint32_t a, int parity) {
         "@!p bra WAIT_%=;\n}\n" ::"r"(a), "r"(parity) : "memory");
 }
 
-// The TMA tensor map of a (B, L, 128) bf16 tensor read in boxes of `rows`
-// rows of one sequence: it views the tensor as (8 channels, L, 16 cells, B)
-// with strides (2, 256, 16, 256 L) bytes, so a box (8, rows, 16, 1) lands in
-// shared memory as [channel/8][row] cells of 16 bytes, and rows outside
-// [0, L) arrive as zeros. Built for each call by cuTensorMapEncodeTiled,
-// looked up through the runtime so that the library does not link libcuda.
-static cudaError_t rows_tensor_map(CUtensorMap* map, const void* x, int B, int L, int rows) {
-    static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-    if (!encode) {
+// cuTensorMapEncodeTiled, looked up through the runtime so that the
+// libraries do not link libcuda
+static cudaError_t tensor_map_encoder(PFN_cuTensorMapEncodeTiled_v12000* encode) {
+    static PFN_cuTensorMapEncodeTiled_v12000 found_fn = nullptr;
+    if (!found_fn) {
         cudaDriverEntryPointQueryResult found;
-        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&found_fn),
                                                         cudaEnableDefault, &found);
         if (err != cudaSuccess) return err;
         if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
     }
+    *encode = found_fn;
+    return cudaSuccess;
+}
+
+// The TMA tensor map of a (B, L, 128) bf16 tensor read in boxes of `rows`
+// rows of one sequence: it views the tensor as (8 channels, L, 16 cells, B)
+// with strides (2, 256, 16, 256 L) bytes, so a box (8, rows, 16, 1) lands in
+// shared memory as [channel/8][row] cells of 16 bytes, and rows outside
+// [0, L) arrive as zeros. Built for each call.
+static cudaError_t rows_tensor_map(CUtensorMap* map, const void* x, int B, int L, int rows) {
+    PFN_cuTensorMapEncodeTiled_v12000 encode;
+    const cudaError_t err = tensor_map_encoder(&encode);
+    if (err != cudaSuccess) return err;
     constexpr int channels = 128;
     cuuint64_t dims[4] = {8, (cuuint64_t)L, channels / 8, (cuuint64_t)B};
     cuuint64_t strides[3] = {channels * 2, 16, (cuuint64_t)L * channels * 2};  // bytes, dims 1-3
@@ -114,6 +123,26 @@ static cudaError_t rows_tensor_map(CUtensorMap* map, const void* x, int B, int L
     cuuint32_t elem_strides[4] = {1, 1, 1, 1};
     const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
                                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same tensor read in boxes of `rows` rows x 64 channels (128-byte box
+// rows, one request each) that land with the 128-byte swizzle: row r of a
+// box at r * 128 bytes, its 16-byte chunk j at chunk j ^ (r % 8). A tile of
+// 128 channels is two boxes, at channels 0 and 64; rows outside [0, L)
+// arrive as zeros. Built for each call.
+static cudaError_t rows_tensor_map_sw128(CUtensorMap* map, const void* x, int B, int L, int rows) {
+    PFN_cuTensorMapEncodeTiled_v12000 encode;
+    const cudaError_t err = tensor_map_encoder(&encode);
+    if (err != cudaSuccess) return err;
+    constexpr int channels = 128;
+    cuuint64_t dims[3] = {channels, (cuuint64_t)L, (cuuint64_t)B};
+    cuuint64_t strides[2] = {channels * 2, (cuuint64_t)L * channels * 2};  // bytes, dims 1-2
+    cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+    cuuint32_t elem_strides[3] = {1, 1, 1};
+    const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
+                                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
