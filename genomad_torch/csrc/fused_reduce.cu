@@ -17,35 +17,48 @@
 //
 // What bounds them on an H100: bytes. At B=128 K2 must read y once (197 MB,
 // 0.06 ms at 3.35 TB/s); the value projection is 25 GFLOP (0.03 ms in bf16
-// on the tensor cores) and the patch dots 0.3 GFLOP.
+// on the tensor cores) and the patch dots 0.3 GFLOP. So y is streamed once,
+// and nothing else may cost a pass over it.
 //
 // Design (bf16, C = 128): a persistent grid of at most one block per SM; a
 // block owns whole batch rows (b = blockIdx.x, + gridDim.x, ...) and walks
 // each row's tiles of TM = 64 rows (8 pool windows, aligned to the pool).
-//  - w_v is loaded once per block and stays resident in shared memory as the
-//    MN-major wgmma B operand, in core matrices of 8 input x 8 output
-//    channels without swizzle, as K4 holds each tap of W.
-//  - A producer warp loads each y tile with one TMA box into a ring of NS
-//    buffers with full/empty mbarriers, in K4's [channel/8][row] cell layout
-//    (hopper.cuh `rows_tensor_map`); rows past L arrive as zeros and fall
-//    only in windows j >= L / 8, which are never written.
-//  - Two consumer warpgroups take alternate tiles. Each issues 8 `wgmma`
-//    m64n128k16 per tile (f32 accumulators in registers), then max-pools in
-//    registers: in the m64nN accumulator layout lane / 4 walks the 8 rows of
-//    one pool window, so three xor shuffles (16, 8, 4) reduce them, each
-//    halving what a lane keeps, on bf16x2 pairs (rounding is monotone, so
-//    rounding before the max gives the bits of rounding after it). A quad
-//    transpose then gives each lane 16 contiguous bytes to store.
-//  - The patch dots come from the staged tile, not from a second gather: a
-//    slot table built once from the patches (ops/patch_reduce.py
-//    `slot_table`) lists the (p, s) slots of each tile. While the products
-//    run, each thread of the warpgroup takes a slot of the tile, loads its
-//    w_patch row (256 bytes, 16 loads of 16 bytes in flight) and dots it
-//    with the y row's cells in shared memory, in f32. The block keeps its
-//    row's P S slot dots in shared memory (33.6 KB at 2,100 x 4) and, once
-//    both warpgroups have passed the row's last tile, sums each patch's
-//    slots in order s = 0..S-1 and stores mpi.
-// No atomics: a rerun is bit-equal.
+// Against what held PR 1's kernel (a block per (tile, row), 12,032 blocks):
+//  1. w_v is loaded once per block and stays resident in shared memory as
+//     the MN-major wgmma B operand, in core matrices of 8 input x 8 output
+//     channels without swizzle, as K4 holds each tap of W (it was copied
+//     again by every block: ~394 MB of L2 reads per launch).
+//  2. A producer warp loads each y tile by TMA into a ring of NS buffers
+//     with full/empty mbarriers: two boxes of 64 rows x 64 channels with the
+//     128-byte swizzle (hopper.cuh `rows_tensor_map_sw128`; 128-byte box
+//     rows, where K4's [channel/8][row] cells make 16-byte ones and 8x the
+//     requests). Rows past L arrive as zeros and fall only in windows j >=
+//     L / 8, which are never written. Warpgroup 0 issues 8 `wgmma`
+//     m64n128k16 per tile from swizzled K-major descriptors (was WMMA with
+//     B fragments reloaded by every warp, nothing asynchronous).
+//  3. Warpgroup 0 max-pools in registers (was an f32 pass through shared
+//     memory and three __syncthreads per tile): in the m64nN accumulator
+//     layout lane / 4 walks the 8 rows of one pool window, so three xor
+//     shuffles (16, 8, 4) reduce them, each halving what a lane keeps, on
+//     bf16x2 pairs (rounding is monotone, so rounding before the max gives
+//     the bits of rounding after it); a quad transpose then gives each lane
+//     16 contiguous bytes to store.
+//  4. The patch dots come from the staged tile, not from a gather of 2-byte
+//     loads (was 275 MB of y rows and 275 MB of w_patch from L2 per launch):
+//     a slot table built once from the patches (ops/patch_reduce.py
+//     `slot_table`, kept by the model) lists each tile's (p, s) slots by
+//     position, with w_patch's rows in the same order, cell-major, so that
+//     32 neighbouring slots' cells are 512 contiguous bytes. The block
+//     copies the index into shared memory once. Warpgroups 1 and 2 take
+//     alternate tiles: each thread dots one slot's w_patch row (16 loads of
+//     16 bytes, issued a tile ahead) with the y row's cells in shared
+//     memory, in f32. The block keeps its row's P S slot dots in shared
+//     memory (33.6 KB at 2,100 x 4) and, after the row's last tile, sums
+//     each patch's slots in order s = 0..S-1 and stores mpi. w_patch is not
+//     reused across batch rows: a block owns one row at a time.
+// A buffer is free once the products and its tile's dots are done (empty
+// counts two arrivals; one in K3). No atomics: a rerun is bit-equal. With
+// B <= 132 every row has its own SM; more rows take a second round.
 //
 // Design (f32, parity runs; and K3 in bf16 at C != 128): one block per (tile
 // of TR positions, batch row); the projection on the CUDA cores in full
@@ -96,11 +109,14 @@ constexpr int CELL = 16;                   // bytes of 8 bf16 channels
 constexpr int KC = C / 8;                  // 16 cells per row
 constexpr int TILE_BYTES = KC * TM * CELL;  // 16,384
 constexpr int WV_BYTES = C * C * 2;        // 32,768
-constexpr int NS = 6;                      // ring buffers (even: consumer g takes buffers g, g + 2, ...)
-constexpr int CONSUMERS = 2;               // warpgroups, alternate tiles
-constexpr int THREADS_TC = CONSUMERS * 128 + 32;  // + a producer warp
+constexpr int NS = 6;                      // ring buffers
+// warpgroup 0 runs every tile's products and pool, warpgroups 1 and 2 take
+// alternate tiles' slot dots, warp 12 is the producer
+constexpr int DOTS = 2;
+constexpr int PRODUCER = 1 + DOTS;         // its warpgroup index
+constexpr int THREADS_TC = PRODUCER * 128 + 32;
 constexpr int BARS_BYTES = 2 * NS * 8;     // full[NS], empty[NS]
-static_assert(NS % CONSUMERS == 0, "a buffer always serves the same warpgroup");
+static_assert(NS % DOTS == 0, "a buffer always serves the same slot-dot warpgroup, which sees each of its phases");
 // w_v in shared memory: core matrix (ci/8, co/8), row ci%8 of 16 bytes
 constexpr int W_LBO = KC * 128;  // next 8 input channels (K direction)
 constexpr int W_SBO = 128;       // next 8 output channels (N direction)
@@ -206,8 +222,9 @@ __device__ __forceinline__ void tile_slot_dots(const uint4* ys, const int* start
     }
 }
 
-// the 256 threads of the two consumer warpgroups (named barrier 3)
-__device__ __forceinline__ void consumers_barrier() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
+// the 256 threads of the two slot-dot warpgroups (named barrier 4; 1-3 are
+// the warpgroups' own)
+__device__ __forceinline__ void dots_barrier() { asm volatile("bar.sync 4, 256;\n" ::: "memory"); }
 
 template <bool POOLED>
 __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
@@ -238,7 +255,7 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
         cp_async_commit();
     }
     if (threadIdx.x == 0) {
-        for (int i = 0; i < 2 * NS; ++i) mbar_init(bars + 8 * i, 1);
+        for (int i = 0; i < 2 * NS; ++i) mbar_init(bars + 8 * i, i < NS || !POOLED ? 1 : 2);  // empty: products and dots
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     if constexpr (POOLED) {
@@ -247,9 +264,9 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
     }
     __syncthreads();  // w_v, the slot table and the barriers are ready
 
-    if (wg == CONSUMERS) {
-        // producer: one lane loads the block's tiles in order, each into its
-        // buffer once that is empty
+    if (wg == PRODUCER) {
+        // one lane loads the block's tiles in order, each into its buffer
+        // once that is empty
         if (t == 0) {
             int i = 0;
             for (int b = blockIdx.x; b < B; b += gridDim.x) {
@@ -270,51 +287,66 @@ __global__ void __launch_bounds__(THREADS_TC, 1) fused_reduce_tc(
         return;
     }
 
-    const int lane = t % 32;
-    const int warp = t / 32;
-    float d[64];
+    if (wg == 0) {  // the products and the pool of every tile
+        if constexpr (POOLED) {
+            const int lane = t % 32;
+            const int warp = t / 32;
+            float d[64];
 #pragma unroll
-    for (int k = 0; k < 64; ++k) d[k] = 0.f;
+            for (int k = 0; k < 64; ++k) d[k] = 0.f;
+            int i = 0;
+            for (int b = blockIdx.x; b < B; b += gridDim.x) {
+                for (int tile = 0; tile < tiles_per_seq; ++tile, ++i) {
+                    const int st = i % NS;
+                    const uint32_t xs = ring + st * TILE_BYTES;
+                    mbar_wait(bars + 8 * st, (i / NS) & 1);  // the tile's rows are in
+                    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+                    for (int kk = 0; kk < C / 16; ++kk)
+                        wgmma_m64n128k16(d, desc_sw128(xs + (kk / 4) * HALF_BYTES + (kk % 4) * 32),
+                                         desc(ws + 2 * kk * W_LBO, W_LBO, W_SBO), kk);
+                    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+                    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+                    for (int k = 0; k < 64; ++k) asm volatile("" : "+f"(d[k])::"memory");
+                    wg_barrier(0);                                   // every warp's products are done:
+                    if (t == 0) mbar_arrive(bars + 8 * (NS + st));  // its part of the buffer's release
+                    pool_store(d, pooled + (size_t)b * n_pool * C, tile * (TM / POOL) + 2 * warp, n_pool, lane);
+                }
+            }
+        }
+        return;
+    }
+
+    // the slot dots: warpgroup 1 + g takes the tiles i = g, g + 2, ... of the
+    // block's walk
+    const int g = wg - 1;
     uint4 w[KC];  // the w_patch cells of this thread's slot in the warpgroup's next tile
     const int PS = P * S;
-    prefetch_slot_w(start, table_tiles, wg % tiles_per_seq, t, slot_w, PS, w);
+    prefetch_slot_w(start, table_tiles, g % tiles_per_seq, t, slot_w, PS, w);
     int i = 0;
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
         for (int tile = 0; tile < tiles_per_seq; ++tile, ++i) {
-            if (i % CONSUMERS != wg) continue;
+            if (i % DOTS != g) continue;
             const int st = i % NS;
             const uint32_t xs = ring + st * TILE_BYTES;
             mbar_wait(bars + 8 * st, (i / NS) & 1);  // the tile's rows are in
-            if constexpr (POOLED) {
-                asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-                for (int kk = 0; kk < C / 16; ++kk)
-                    wgmma_m64n128k16(d, desc_sw128(xs + (kk / 4) * HALF_BYTES + (kk % 4) * 32),
-                                     desc(ws + 2 * kk * W_LBO, W_LBO, W_SBO), kk);
-                asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-            }
-            // while the products run: the tile's slot dots, then the loads for
-            // the warpgroup's next tile (i + 2, the same or the next row)
+            // the tile's slot dots, then the loads for the warpgroup's next
+            // tile (i + 2, the same or the next row): a tile period to land
             tile_slot_dots(reinterpret_cast<const uint4*>(smem + (xs - ws)), start, entries, table_tiles, tile, slot_w,
                            PS, slot_dots, t, w);
-            prefetch_slot_w(start, table_tiles, (tile + CONSUMERS) % tiles_per_seq, t, slot_w, PS, w);
-            if constexpr (POOLED) {
-                asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-                for (int k = 0; k < 64; ++k) asm volatile("" : "+f"(d[k])::"memory");
-            }
-            wg_barrier(wg);                                  // every warp is done with the buffer:
-            if (t == 0) mbar_arrive(bars + 8 * (NS + st));  // it is free for the next tile
-            if constexpr (POOLED) pool_store(d, pooled + (size_t)b * n_pool * C, tile * (TM / POOL) + 2 * warp, n_pool, lane);
+            prefetch_slot_w(start, table_tiles, (tile + DOTS) % tiles_per_seq, t, slot_w, PS, w);
+            wg_barrier(wg);                                  // every warp's dots are done:
+            if (t == 0) mbar_arrive(bars + 8 * (NS + st));  // its part of the buffer's release
         }
         // every slot dot of the row is in: sum each patch's slots in order
-        consumers_barrier();
-        for (int p = threadIdx.x; p < P; p += CONSUMERS * 128) {
+        dots_barrier();
+        for (int p = threadIdx.x - 128; p < P; p += DOTS * 128) {
             float v = slot_dots[p * S];
             for (int s = 1; s < S; ++s) v += slot_dots[p * S + s];
             mpi[(size_t)b * P + p] = v;
         }
-        consumers_barrier();  // before the next row's dots overwrite them
+        dots_barrier();  // before the next row's dots overwrite them
     }
 }
 
