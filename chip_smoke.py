@@ -18,11 +18,13 @@ only the full run, with no arguments, does.
               patch_reduce against their plain PyTorch versions at the nn
               path's shapes (B=128, L=6016, C=128, full-size synthetic
               weights, tokens from random DNA with N runs) in bf16 and in
-              f32 (TF32 off), and at a ragged shape (K3's mpi bit-equal to
-              K2's); K4 also at the edges of its persistent schedule (B=1
-              L=70, B=133 L=6016, L=5) and bit-equal to itself on a rerun;
-              times kernel, plain version and the PyTorch library call that
-              computes the same function, beside the card's bound.
+              f32 (TF32 off), and at a ragged shape; K2 and K3 also on
+              ``fused_reduce_edge_cases`` (K3's mpi bit-equal to K2's) and
+              K4 at the edges of its persistent schedule (B=1 L=70, B=133
+              L=6016, L=5), each bit-equal to itself on a rerun; times
+              kernel, plain version and the PyTorch library call that
+              computes the same function, beside the card's bound, and K2
+              and K3 with all, a quarter and none of the patches.
 4. sw       - holds K1 sw_pairs (Smith-Waterman) bit for bit against its
               plain version: the annotate path's buckets (Lq = Lp = 128,
               256, 384 and 512, N = 4096 pairs from an integral

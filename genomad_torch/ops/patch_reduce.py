@@ -107,7 +107,7 @@ def fused_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
     _build.require(w_v.shape == (C, C), "w_v must be (C, C)")
     if y.dtype == torch.bfloat16:
         _build.require(C == _build.TC_CHANNELS, f"the bf16 kernel takes C = {_build.TC_CHANNELS}")
-        _require_aligned(y, w_patch, w_v)
+        _check_tc(y, P, S, w_v)
     else:
         _build.require(_TILE_ROWS * C * 4 <= 48 * 1024, "the f32 kernel takes C <= 192")
     mpi = torch.empty((B, P), dtype=torch.float32, device=y.device)
@@ -142,7 +142,7 @@ def patch_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
         return patch_reduce_plain(y, patches, w_patch)
     B, L, C, P, S = _check(y, patches, w_patch)
     if y.dtype == torch.bfloat16 and C == _build.TC_CHANNELS:
-        _require_aligned(y, w_patch)
+        _check_tc(y, P, S)
     mpi = torch.empty((B, P), dtype=torch.float32, device=y.device)
     if B == 0 or L == 0:
         return mpi
@@ -173,12 +173,12 @@ def _check(y, patches, w_patch, *weights):
     return B, L, C, P, S
 
 
-def _require_aligned(y, w_patch, *weights):
+def _check_tc(y, P, S, *weights):
     """The checks of the bf16 tensor-core body (C = 128): it reads y by TMA
-    and w_patch and w_v in 16-byte cells, and keeps a row's P * S slot dots
-    in shared memory."""
-    _build.require(all(t.data_ptr() % 16 == 0 for t in (y, w_patch, *weights)), "the bf16 kernel takes 16-byte aligned inputs")
-    _build.require(w_patch.shape[0] * w_patch.shape[1] <= MAX_SLOTS, f"the bf16 kernel takes P * S <= {MAX_SLOTS}")
+    and w_v in 16-byte cells, and keeps the slot table and a row's P * S
+    slot dots in shared memory."""
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (y, *weights)), "the bf16 kernel takes 16-byte aligned inputs")
+    _build.require(P * S <= MAX_SLOTS, f"the bf16 kernel takes P * S <= {MAX_SLOTS}")
 
 
 def _slots_for(y, patches, w_patch, slots):

@@ -250,9 +250,11 @@ def test_kernel_checks_of_the_bf16_body():
     for bad in ((index.long(), weights), (index[:20], weights), (index, weights.float()), (index, weights[:, :20])):
         with pytest.raises(ValueError, match="slots must be"):
             patch_reduce._slots_for(y, patches, w_patch, bad)
-    big = torch.zeros((patch_reduce.MAX_SLOTS // 4 + 1, 4, 128), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="P \\* S <="):
-        patch_reduce._require_aligned(y, big)
+        patch_reduce._check_tc(y, patch_reduce.MAX_SLOTS // 4 + 1, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        patch_reduce._check_tc(torch.zeros(2 * 70 * 128 + 1, dtype=torch.bfloat16)[1:].view(2, 70, 128), 7, 4)
+    patch_reduce._check_tc(y, 7, 4)
 
 
 def _wrapper_cases(rng):
