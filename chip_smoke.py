@@ -162,6 +162,18 @@ def max_err(got, ref, dtype) -> float:
     return err
 
 
+def bit_equal(got, ref, what: str) -> float:
+    """Raises unless got is finite and equal to ref element for element
+    (torch.equal: -0.0 equals +0.0); returns the max abs difference: 0."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} != {tuple(ref.shape)} {ref.dtype}")
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what}: output is not finite")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{what}: {int((got != ref).sum())} of {got.numel()} values differ")
+    return 0.0
+
+
 def random_bases(rng, n, length=6000, n_fraction=0.02):
     """(n, length) base codes of random DNA with N runs."""
     codes = rng.integers(0, 4, size=(n, length), dtype=np.uint8)
@@ -192,7 +204,7 @@ def kernel_phase(results: dict) -> None:
     rng = np.random.default_rng(SEED)
     raw = igloo.init_params(SEED)
     bases = torch.from_numpy(random_bases(rng, BATCH)).to(dev)
-    tokens = igloo._tokens_from_bases(igloo._pad_bases(bases)).contiguous()  # (128, 6016)
+    tokens = conv.tokens_from_bases(conv.pad_bases(bases, igloo.L_PAD + 3)).contiguous()  # (128, 6016)
     B, L = tokens.shape
     C = igloo.CHANNELS
     entries = {}
@@ -201,8 +213,10 @@ def kernel_phase(results: dict) -> None:
         p = igloo.params_from_numpy(raw, dtype)
         p = {g: {n: t.to(dev) for n, t in d.items()} for g, d in p.items()}
         name = str(dtype).split(".")[1]
-        h1 = conv.embed_conv(tokens, p["conv1"]["kernel"], p["conv1"]["bias"])
-        e5 = max_err(h1, conv.embed_conv_plain(tokens, p["conv1"]["kernel"], p["conv1"]["bias"]), dtype)
+        k1, b1 = p["conv1"]["kernel"], p["conv1"]["bias"]
+        h1 = conv.embed_conv(tokens, k1, b1)
+        e5 = bit_equal(h1, conv.embed_conv_plain(tokens, k1, b1), f"K5 {name}")
+        bit_equal(conv.embed_conv(tokens, k1, b1, False), conv.embed_conv_plain(tokens, k1, b1, False), f"K5 {name} no leaky")
         h2 = conv.causal_conv(h1, p["conv2"]["kernel"], p["conv2"]["bias"])
         e4 = max_err(h2, conv.causal_conv_plain(h1, p["conv2"]["kernel"], p["conv2"]["bias"]), dtype)
         e4n = max_err(
@@ -221,7 +235,7 @@ def kernel_phase(results: dict) -> None:
         if not torch.equal(mpi3, mpi):  # one code path: K3's mpi is K2's bit for bit
             raise AssertionError(f"K3 mpi differs from K2 mpi ({dtype}) in {int((mpi3 != mpi).sum())} values")
         torch.cuda.synchronize()
-        log(f"# kernels {name} B={B} L={L}: K5 {e5:.3g}  K4 {e4:.3g} (no leaky {e4n:.3g})  K2 mpi {e2m:.3g} pooled {e2p:.3g}  "
+        log(f"# kernels {name} B={B} L={L}: K5 bit-equal (with and without LeakyReLU)  K4 {e4:.3g} (no leaky {e4n:.3g})  K2 mpi {e2m:.3g} pooled {e2p:.3g}  "
             f"K3 {e3:.3g} (bit-equal to K2 mpi)")
         if dtype == torch.bfloat16:
             entries = {
@@ -240,9 +254,23 @@ def kernel_phase(results: dict) -> None:
         k2 = torch.from_numpy(rng.normal(0, 0.1, (6, C, C)).astype(np.float32)).to(dev, dtype)
         bias = torch.from_numpy(rng.normal(0, 0.2, C).astype(np.float32)).to(dev, dtype)
         x = conv.embed_conv(tok, k1, bias)
-        max_err(x, conv.embed_conv_plain(tok, k1, bias), dtype)
+        bit_equal(x, conv.embed_conv_plain(tok, k1, bias), "K5 ragged")
         max_err(conv.causal_conv(x, k2, bias), conv.causal_conv_plain(x, k2, bias), dtype)
-    log("# ragged B=3 L=1001: K5 and K4 agree with their plain versions (f32, bf16)")
+    log("# ragged B=3 L=1001: K5 bit-equal, K4 agrees with its plain version (f32, bf16)")
+
+    # K5 on the edges of its persistent schedule and of the causal halo,
+    # tokens from the plain tokenizer, f32 and bf16
+    erng = np.random.default_rng(SEED + 11)
+    for case, (bn, Le) in embed_conv_edge_cases().items():
+        bases_e = torch.from_numpy(bn).to(dev)
+        tok = conv.tokens_from_bases(conv.pad_bases(bases_e, Le + 3)).contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            k1 = torch.from_numpy(erng.normal(0, 0.2, (6, 257, C)).astype(np.float32)).to(dev, dtype)
+            bias = torch.from_numpy(erng.normal(0, 0.2, C).astype(np.float32)).to(dev, dtype)
+            what = f"K5 edge case {case} {str(dtype).split('.')[1]}"
+            bit_equal(conv.embed_conv(tok, k1, bias), conv.embed_conv_plain(tok, k1, bias), what)
+        torch.cuda.synchronize()
+        log(f"# K5 edge case {case} B={tok.shape[0]} L={Le}: bit-equal (f32, bf16)")
 
     # K2 and K3 at the edges of their persistent schedule, f32 and bf16
     for name, (yn, pn, wpn, wvn) in fused_reduce_edge_cases().items():
@@ -261,6 +289,10 @@ def kernel_phase(results: dict) -> None:
                 e = max(e, max_err(patch_reduce.patch_reduce(xc, patches, wc), patch_reduce.patch_reduce_plain(xc, patches, wc), torch.float32))
             torch.cuda.synchronize()
             log(f"# K2 edge case {name} B={x.shape[0]} L={x.shape[1]} {str(dtype).split('.')[1]}: K2 and K3 {e:.3g} (K3 mpi bit-equal to K2's)")
+
+    tok, k1, b1 = entries["embed_conv"]["args"]
+    bit_equal(conv.embed_conv(tok, k1, b1), conv.embed_conv(tok, k1, b1), "K5 rerun")
+    log(f"# K5 rerun at B={B} L={L}: bit-equal")
 
     # K4's persistent schedule (tiles of 64 rows, two per block and round,
     # one block per SM) at its edges, bf16: one tile plus a ragged one; a
@@ -372,6 +404,49 @@ def kernel_phase(results: dict) -> None:
             f"{t['launches_per_batch']} launch(es) per nn batch"
         )
     log("# K2 by part: " + json.dumps(fused_reduce_parts(y, patches, w_patch, w_v)))
+
+
+# name -> (B, bases per row, L positions)
+EMBED_EDGE_CASES = {
+    "B1_L1": (1, 4, 1),  # one position: five causal taps
+    "L5": (4, 8, 5),  # shorter than the halo
+    "L6": (4, 9, 6),  # the halo and one position
+    "B133_L6016": (133, 6000, 6016),  # the model's shape; 3,192 tiles, no multiple of the grid
+    "B3_L1001": (3, 1001, 1001),  # a ragged tile; the last 3 tokens read N padding
+    "token_edges": (2, 64, 64),  # tokens 0 at t < 5, token 256, a code above 4
+    "all_N": (2, 600, 600),  # row 1 all N
+}
+
+
+def embed_conv_edge_cases(max_rows: int | None = None) -> dict:
+    """Edge cases of K5's persistent schedule (a block owns a channel slice
+    and strides over 256-position tiles) and of its causal halo: name ->
+    (bases (B, n) uint8 codes, L), the tokens or bases of a length-L conv1.
+    Each row is drawn from its own seed, so ``max_rows`` keeps the first
+    rows of a case as they are (tests/test_torch_kernels.py holds the plain
+    versions against JAX on them; the kernel phase holds the kernels
+    against the plain versions on every row)."""
+    cases = {}
+    for k, (name, (B, n, L)) in enumerate(EMBED_EDGE_CASES.items()):
+        rows = B if max_rows is None else min(B, max_rows)
+        bases = np.stack([
+            random_bases(np.random.default_rng([SEED + 10, k, b]), 1, n)[0] if n >= 600
+            else np.random.default_rng([SEED + 10, k, b]).integers(0, 4, n, dtype=np.uint8)
+            for b in range(rows)
+        ])
+        if name in ("L5", "L6"):
+            bases[0, 2] = 4  # tokens 0 at t = 0..2
+        if name == "token_edges":
+            bases[0, :2] = 4  # tokens 0 at t = 0, 1
+            bases[0, 10:20] = 3  # TTTT: token 256 at t = 10..16
+            bases[0, 30] = 9  # any code >= 4 is N
+            if rows > 1:
+                bases[1, :4] = 3  # token 256 at t = 0
+                bases[1, 4] = 4  # tokens 0 at t = 1..4
+        if name == "all_N" and rows > 1:
+            bases[1] = 4
+        cases[name] = (bases, L)
+    return cases
 
 
 def fused_reduce_parts(y, patches, w_patch, w_v) -> dict:

@@ -7,6 +7,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace gt {
 
 using bf16 = __nv_bfloat16;
@@ -36,6 +38,18 @@ __device__ __forceinline__ float conv_epilogue(float acc, float bias, float slop
     float v = round_to<T>(round_to<T>(acc) + bias);
     if (leaky && !(v >= 0.f)) v *= slope;
     return v;
+}
+
+// conv_epilogue on two channels at once, in bf16x2: the f32 sums rounded
+// to bf16, the bias added in bf16 (one rounding of the exact sum, as the
+// f32 add of two bf16 values then rounded to bf16 gives), LeakyReLU as
+// max(v, v * slope) in bf16, which is where(v >= 0, v, v * slope) for a
+// slope in [0, 1], NaN included
+__device__ __forceinline__ uint32_t conv_epilogue_bf16x2(float lo, float hi, __nv_bfloat162 bias2,
+                                                         __nv_bfloat162 slope2, int leaky) {
+    __nv_bfloat162 v = __hadd2(__floats2bfloat162_rn(lo, hi), bias2);
+    if (leaky) v = __hmax2_nan(v, __hmul2(v, slope2));
+    return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace gt

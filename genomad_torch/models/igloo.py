@@ -44,7 +44,7 @@ L_PAD = 6_016
 ENC_DIM = 512
 N_CLASSES = 3
 BN_EPS = 1e-3  # keras BatchNormalization default epsilon
-N_CODE = 4  # base code of N / unknown
+N_CODE = conv.N_CODE  # base code of N / unknown
 
 Params = Dict[str, Any]
 
@@ -158,24 +158,6 @@ def params_from_numpy(raw: Params, dtype=torch.bfloat16) -> Dict[str, Dict[str, 
 # ---------------------------------------------------------------------------
 
 
-def _pad_bases(bases: torch.Tensor) -> torch.Tensor:
-    """Pad a (B, 6000) base-code batch with N codes out to L_PAD + 3 bases.
-    Padded token positions are causal and never influence real positions."""
-    return torch.nn.functional.pad(bases, (0, L_PAD + 3 - bases.shape[1]), value=N_CODE)
-
-
-def _tokens_from_bases(bases: torch.Tensor) -> torch.Tensor:
-    """5-ary base codes (B, L_bases) -> int32 tokens (B, L_bases - 3): the
-    4-mer value + 1, or 0 when any base of the window is N
-    (genomad/sequence.py:170-193 semantics)."""
-    codes = bases.to(torch.int32)
-    n_out = codes.shape[1] - 3
-    windows = [codes[:, j : j + n_out] for j in range(4)]
-    valid = (windows[0] < 4) & (windows[1] < 4) & (windows[2] < 4) & (windows[3] < 4)
-    token = windows[0] * 64 + windows[1] * 16 + windows[2] * 4 + windows[3] + 1
-    return torch.where(valid, token, torch.zeros_like(token))
-
-
 class IglooClassifier(torch.nn.Module):
     """The IGLOO window classifier on one device.
 
@@ -244,4 +226,4 @@ class IglooClassifier(torch.nn.Module):
         """(B, 6000) base codes (ACGT = 0..3, N = 4; any integer dtype) ->
         (B, 3) float32 class probs: the JAX ``apply_bases`` (tokenized on the
         device, trunk padded to L_PAD)."""
-        return self.forward_tokens(_tokens_from_bases(_pad_bases(bases)))
+        return self.forward_tokens(conv.tokens_from_bases(conv.pad_bases(bases, L_PAD + 3)))

@@ -23,6 +23,11 @@ from genomad_torch.ops import _build
 K_SIZE = 6
 HALO = K_SIZE - 1
 LEAKY_SLOPE = 0.1
+N_CODE = 4  # base code of N / unknown
+# K5's shared memory: a 128-byte channel slice of 6 x (V + 1) table rows and
+# two buffers of 264 staged row offsets, within the 232,448 B of a block
+EMBED_SLICE_BYTES = 128
+EMBED_MAX_VOCAB = (232_448 - 2 * 264 * 4) // (K_SIZE * EMBED_SLICE_BYTES) - 1
 
 _SIGNATURES = {
     "embed_conv": {
@@ -47,6 +52,30 @@ def _slope(dtype) -> float:
     """LeakyReLU slope as the compute dtype holds it (JAX multiplies by the
     weakly-typed 0.1 in that dtype)."""
     return float(torch.tensor(LEAKY_SLOPE, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# The 4-mer tokenizer that feeds conv1
+# ---------------------------------------------------------------------------
+
+
+def pad_bases(bases: torch.Tensor, length: int) -> torch.Tensor:
+    """(B, n) base codes -> (B, length): N codes appended past n (the row cut
+    when n > length). Padded token positions lie after the real ones and,
+    the conv being causal, never influence them."""
+    return F.pad(bases, (0, length - bases.shape[1]), value=N_CODE)
+
+
+def tokens_from_bases(bases: torch.Tensor) -> torch.Tensor:
+    """5-ary base codes (B, n) -> int32 tokens (B, n - 3): the 4-mer value of
+    bases t..t+3 plus 1, or 0 when any of them is N (a code >= 4)
+    (genomad/sequence.py:170-193 semantics)."""
+    codes = bases.to(torch.int32)
+    n_out = codes.shape[1] - 3
+    windows = [codes[:, j : j + n_out] for j in range(4)]
+    valid = (windows[0] < N_CODE) & (windows[1] < N_CODE) & (windows[2] < N_CODE) & (windows[3] < N_CODE)
+    token = windows[0] * 64 + windows[1] * 16 + windows[2] * 4 + windows[3] + 1
+    return torch.where(valid, token, torch.zeros_like(token))
 
 
 # ---------------------------------------------------------------------------
@@ -79,12 +108,9 @@ def embed_conv(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, a
     if not _build.on_cuda(tokens, kernel, bias):
         return embed_conv_plain(tokens, kernel, bias, apply_leaky)
     _build.require(tokens.dim() == 2 and tokens.dtype == torch.int32, "tokens must be (B, L) int32")
-    _build.require(kernel.dim() == 3 and kernel.shape[0] == K_SIZE, "kernel must be (6, V, C)")
-    _build.require(kernel.dtype in _build.DTYPES and bias.dtype == kernel.dtype, "kernel/bias must share a float32 or bfloat16 dtype")
-    _build.require(bias.shape == (kernel.shape[2],), "bias must be (C,)")
-    _build.require(all(t.is_contiguous() for t in (tokens, kernel, bias)), "inputs must be contiguous")
+    _build.require(tokens.is_contiguous(), "inputs must be contiguous")
+    V, C = _check_embed(kernel, bias)
     B, L = tokens.shape
-    _, V, C = kernel.shape
     out = torch.empty((B, L, C), dtype=kernel.dtype, device=tokens.device)
     if out.numel() == 0:
         return out
@@ -101,6 +127,23 @@ def embed_conv(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, a
 
 
 embed_conv.launches = 0
+
+
+def _check_embed(kernel: torch.Tensor, bias: torch.Tensor) -> tuple[int, int]:
+    """The checks K5 makes on its table before it launches: returns (V, C).
+    A block keeps one 128-byte channel slice of all six taps in shared
+    memory, so V is bounded, C is a whole number of slices and the table is
+    copied in 16-byte pieces."""
+    _build.require(kernel.dim() == 3 and kernel.shape[0] == K_SIZE, "kernel must be (6, V, C)")
+    _build.require(kernel.dtype in _build.DTYPES and bias.dtype == kernel.dtype, "kernel/bias must share a float32 or bfloat16 dtype")
+    _build.require(bias.shape == (kernel.shape[2],), "bias must be (C,)")
+    _build.require(kernel.is_contiguous() and bias.is_contiguous(), "inputs must be contiguous")
+    _, V, C = kernel.shape
+    _build.require(1 <= V <= EMBED_MAX_VOCAB, f"the kernel takes V <= {EMBED_MAX_VOCAB} (its table slice lives in shared memory)")
+    per_slice = EMBED_SLICE_BYTES // kernel.element_size()
+    _build.require(C > 0 and C % per_slice == 0, f"the {kernel.dtype} kernel takes C a multiple of {per_slice}")
+    _build.require(kernel.data_ptr() % 16 == 0, "the kernel takes a 16-byte aligned table")
+    return V, C
 
 
 # ---------------------------------------------------------------------------

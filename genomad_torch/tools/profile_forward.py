@@ -31,14 +31,14 @@ BATCH = 128  # the CLI default
 def forward_stages(model: igloo.IglooClassifier, bases: torch.Tensor) -> dict:
     """The stages, each a function of no arguments on ``bases`` (B, 6000)
     on the model's device, in the order they are printed."""
-    tokens = igloo._tokens_from_bases(igloo._pad_bases(bases)).contiguous()
+    tokens = conv.tokens_from_bases(conv.pad_bases(bases, igloo.L_PAD + 3)).contiguous()
     h1 = conv.embed_conv(tokens, model.conv1.kernel, model.conv1.bias)
     ig = model.igloo1
     slots = patch_reduce.SlotTable(ig.slot_index, ig.slot_weights)
     feat = torch.zeros((bases.shape[0], 2 * igloo.CHANNELS), dtype=model.dtype, device=bases.device)
     return {
         "full forward": lambda: model.forward_bases(bases),
-        "tokenize": lambda: igloo._tokens_from_bases(igloo._pad_bases(bases)),
+        "tokenize": lambda: conv.tokens_from_bases(conv.pad_bases(bases, igloo.L_PAD + 3)),
         "conv1 (K5 embed_conv)": lambda: conv.embed_conv(tokens, model.conv1.kernel, model.conv1.bias),
         "conv2+conv3 (K4 causal_conv)": lambda: conv.causal_conv(
             conv.causal_conv(h1, model.conv2.kernel, model.conv2.bias), model.conv3.kernel, model.conv3.bias

@@ -47,6 +47,61 @@ def test_embed_conv_plain_matches_jax(rng):
     np.testing.assert_allclose(got, np.asarray(pallas), **CONV_TOL)
 
 
+def _edge_inputs(name):
+    """An edge case of K5 (chip_smoke.embed_conv_edge_cases, first two
+    rows): the bases, L, the tokens of the port's tokenizer, and a table and
+    bias drawn from the case's own seed."""
+    bases, L = chip_smoke.embed_conv_edge_cases(max_rows=2)[name]
+    tokens = conv.tokens_from_bases(conv.pad_bases(_t(bases), L + 3)).numpy()
+    r = np.random.default_rng([7, list(chip_smoke.EMBED_EDGE_CASES).index(name)])
+    kernel = r.normal(0, 0.2, (6, 257, 128)).astype(np.float32)
+    bias = r.normal(0, 0.2, 128).astype(np.float32)
+    return bases, L, tokens, kernel, bias
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.EMBED_EDGE_CASES))
+def test_embed_conv_edge_cases_match_jax(name):
+    """The edge cases of K5's schedule and causal halo (one position, fewer
+    positions than the halo, the model's shape, a ragged tile, tokens 0 at
+    t < 5 and token 256, an all-N row), first two rows: the plain version
+    against JAX's ``_embed_onehot_conv`` and its Pallas ``embed_conv`` in
+    interpret mode (from L = 5: its tiles hold at least the halo) in f32, and
+    bit-equal to ``_embed_onehot_conv`` in bf16.
+    chip_smoke.py's kernel phase holds the kernel against the plain version
+    on every row, bit for bit, f32 and bf16."""
+    _, L, tokens, kernel, bias = _edge_inputs(name)
+    assert tokens.shape == (min(2, chip_smoke.EMBED_EDGE_CASES[name][0]), L)
+    got = conv.embed_conv_plain(_t(tokens), _t(kernel), _t(bias)).numpy()
+    xla = jig._leaky_relu(jig._embed_onehot_conv(jnp.asarray(tokens), jnp.asarray(kernel), jnp.asarray(bias)))
+    np.testing.assert_allclose(got, np.asarray(xla), **CONV_TOL)
+    if L >= conv.HALO:  # the Pallas kernel's tiles hold at least its halo
+        pallas = conv_pallas.embed_conv(
+            jnp.asarray(tokens), jnp.asarray(kernel), jnp.asarray(bias), tile_b=tokens.shape[0],
+            tile_l=376 if L % 376 == 0 else L, interpret=True,
+        )
+        np.testing.assert_allclose(got, np.asarray(pallas), **CONV_TOL)
+    bf = jnp.bfloat16
+    h1 = conv.embed_conv_plain(_t(tokens), _t(kernel).bfloat16(), _t(bias).bfloat16())
+    ref = jig._leaky_relu(jig._embed_onehot_conv(jnp.asarray(tokens), jnp.asarray(kernel, bf), jnp.asarray(bias, bf)))
+    np.testing.assert_array_equal(h1.float().numpy(), np.asarray(jnp.asarray(ref, jnp.float32)))
+
+
+def test_tokenizer_matches_jax(rng):
+    """The port's one tokenizer (``conv.pad_bases``, ``conv.tokens_from_bases``)
+    against JAX's ``_pad_bases`` and ``_tokens_from_bases`` on 6,000-base rows
+    with N runs, a code above 4 and an all-N row; a row longer than the
+    length is cut."""
+    bases = chip_smoke.random_bases(rng, 3)
+    bases[0, 100] = 7
+    bases[2] = 4
+    got = conv.tokens_from_bases(conv.pad_bases(_t(bases), jig.L_PAD + 3))
+    ref = jig._tokens_from_bases(jig._pad_bases(jnp.asarray(bases, jnp.int32)))
+    assert got.dtype == torch.int32 and got.shape == (3, jig.L_PAD)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert int(got[:, 5997:].max()) == 0 and int(got[2].max()) == 0 and int(got[0, 97:101].max()) == 0
+    np.testing.assert_array_equal(conv.pad_bases(_t(bases), 100).numpy(), bases[:, :100])
+
+
 @pytest.mark.parametrize("apply_leaky", [True, False])
 def test_causal_conv_plain_matches_jax(rng, apply_leaky):
     B, L, C = 4, 64, 128
@@ -331,6 +386,53 @@ def test_causal_conv_checks_its_inputs(case, match):
 def test_causal_conv_check_passes_what_the_kernel_takes():
     assert conv._check(*_k4_inputs(C=128, dtype=torch.bfloat16)) == (2, 40, 128)
     assert conv._check(*_k4_inputs(C=332)) == (2, 40, 332)
+
+
+def _k5_inputs(V=257, C=128, dtype=torch.bfloat16):
+    return torch.zeros((6, V, C), dtype=dtype), torch.zeros(C, dtype=dtype)
+
+
+@pytest.mark.parametrize(
+    "case, match",
+    [
+        (lambda: _k5_inputs(V=conv.EMBED_MAX_VOCAB + 1), "V <= 298"),
+        (lambda: _k5_inputs(C=96), "multiple of 64"),
+        (lambda: _k5_inputs(C=48, dtype=torch.float32), "multiple of 32"),
+        (lambda: (torch.zeros(6 * 257 * 128 + 1, dtype=torch.bfloat16)[1:].view(6, 257, 128), _k5_inputs()[1]),
+         "16-byte aligned"),
+        (lambda: (_k5_inputs()[0], torch.zeros(128)), "share a float32 or bfloat16"),
+        (lambda: (torch.zeros((5, 257, 128), dtype=torch.bfloat16), _k5_inputs()[1]), r"must be \(6, V, C\)"),
+    ],
+    ids=["V-above-shared-memory", "bf16-C96", "f32-C48", "misaligned-table", "mixed-dtypes", "five-taps"],
+)
+def test_embed_conv_checks_its_table(case, match):
+    """K5 makes these checks before it launches and raises on what the kernel
+    does not take (here the CPU path is taken first, so the checks are
+    called directly)."""
+    with pytest.raises(ValueError, match=match):
+        conv._check_embed(*case())
+
+
+def test_embed_conv_check_passes_what_the_kernel_takes():
+    assert conv.EMBED_MAX_VOCAB == 298
+    assert conv._check_embed(*_k5_inputs()) == (257, 128)
+    assert conv._check_embed(*_k5_inputs(V=298, C=64)) == (298, 64)
+    assert conv._check_embed(*_k5_inputs(C=32, dtype=torch.float32)) == (257, 32)
+
+
+def test_k5_ablations_edit_the_committed_kernel():
+    """The ablation tool edits lines of csrc/embed_conv.cu: each of its
+    kernels differs from the committed one, and an edit that no longer
+    matches raises instead of timing the unedited kernel."""
+    from genomad_torch.ops import _build
+    from genomad_torch.tools import ablate_embed_conv as ab
+
+    source = (_build.CSRC / "embed_conv.cu").read_text()
+    sources = ab.ablated_sources(source)
+    assert sources["kernel"] == source
+    assert len({sources[name] for name in ab.ABLATIONS}) == len(ab.ABLATIONS)
+    with pytest.raises(ValueError, match="expected one"):
+        ab.ablated_sources(source.replace("const uint4 v = epilogue(acc);", ""))
 
 
 def test_k4_ablations_edit_the_committed_kernel():
