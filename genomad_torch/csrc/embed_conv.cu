@@ -20,16 +20,18 @@
 // taps in shared memory for its whole life: 6 x (V + 1) x 128 bytes
 // (198,144 B at V = 257), copied once with 16-byte cp.async, row V of each
 // tap zeroed. The grid is the SM count rounded down to a multiple of the
-// slice count; block i takes slice i % n_slices and strides over the
-// (batch row, tile of TL = 256 positions) work items. A tile's TL + 5 table
-// row offsets are staged in shared memory (double-buffered, one barrier a
-// tile) from registers loaded during the tile before. A thread owns 16
-// bytes of channels (8 bf16 or 4 f32) of 4 consecutive positions: per
-// position six 16-byte shared loads, one per tap (the 8 lanes of a row read
-// its 128 bytes; a warp reads 4 rows in 4 wavefronts, no bank conflicts),
-// f32 sums in tap order k = 0..5 (the plain version's order, so the result
-// is bit-equal to it), the epilogue with the JAX rounding points, and one
-// 16-byte store (the 8 lanes write a full 128-byte segment).
+// slice count; block i takes slice i % n_slices. Past the one barrier that
+// waits for the table, the 16 warps of a block run on their own: the warps
+// of a slice stride over units of WPOS = 16 positions of one batch row, and
+// each warp stages its unit's 16 + 5 table row offsets in its own shared
+// buffer (loaded into registers two units ahead; __syncwarp only). A
+// thread owns 16 bytes of channels (8 bf16 or 4 f32) of 4 consecutive
+// positions: per position six 16-byte shared loads, one per tap (the 8
+// lanes of a row read its 128 bytes; a warp reads 4 rows in 4 wavefronts, no
+// bank conflicts), issued while the position before is summed; f32 sums in
+// tap order k = 0..5 (the plain version's order, so the result is
+// bit-equal to it); the epilogue with the JAX rounding points (bf16x2 in
+// bf16); one 16-byte store (the 8 lanes write a full 128-byte segment).
 //
 // The bases form (embed_conv_bases_launch) is the same body with the 4-mer
 // tokenizer of igloo's `_tokens_from_bases(_pad_bases(.))` fused into the
@@ -54,13 +56,14 @@ constexpr int HALO = KS - 1;
 constexpr int ROW_BYTES = 128;           // one channel slice of one table row
 constexpr int LANES = ROW_BYTES / 16;    // threads per row slice, 16 bytes each
 constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
 constexpr int PPT = 4;                   // consecutive positions per thread
-constexpr int TL = THREADS / LANES * PPT;  // 256 positions per tile
-constexpr int TOK = TL + 8;              // staged offsets per buffer: TL + HALO, padded to 16 bytes
+constexpr int WPOS = 32 / LANES * PPT;   // 16 positions per warp and unit
+constexpr int WTOK = WPOS + 8;           // staged offsets per warp: WPOS + HALO, padded to 16 bytes
 constexpr int SMEM_LIMIT = 232448;
 constexpr int N_CODE = 4;                // base codes >= 4 are N
 
-size_t smem_bytes(int V) { return (size_t)KS * (V + 1) * ROW_BYTES + 2 * TOK * sizeof(int); }
+size_t smem_bytes(int V) { return (size_t)KS * (V + 1) * ROW_BYTES + WARPS * WTOK * sizeof(int); }
 
 // The byte offset, within a tap, of the table row that position t of batch
 // row `row` reads: its token's row, or the zero row V for the causal
@@ -143,15 +146,16 @@ struct Epilogue<gt::bf16> {
 template <typename T, bool BASES>
 __global__ void __launch_bounds__(THREADS, 1) embed_conv_kernel(
     const void* __restrict__ in, const T* __restrict__ w, const T* __restrict__ bias, T* __restrict__ out, int L,
-    int n, int V, int C, int n_slices, int tiles_per_row, int n_tiles, float slope, int leaky) {
+    int n, int V, int C, int n_slices, int units_per_row, int n_units, float slope, int leaky) {
     constexpr int EPT = 16 / sizeof(T);  // channels per thread
     constexpr int SC = ROW_BYTES / sizeof(T);  // channels per slice
     extern __shared__ __align__(16) unsigned char smem[];
     const int tap_bytes = (V + 1) * ROW_BYTES;
-    int* tok = reinterpret_cast<int*>(smem + KS * tap_bytes);  // [2][TOK]
+    const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+    int* offsets = reinterpret_cast<int*>(smem + KS * tap_bytes) + warp * WTOK;  // this warp's
     const int slice = blockIdx.x % n_slices;
-    const int lane = threadIdx.x % LANES;
-    const int q = threadIdx.x / LANES;  // positions 4q .. 4q+3 of a tile
+    const int lane = wl % LANES;
+    const int q = wl / LANES;  // positions 4q .. 4q+3 of the warp's unit
     const int c0 = slice * SC + lane * EPT;
 
     // the slice of every tap, 16 bytes a copy; row V of each tap zeroed
@@ -168,29 +172,29 @@ __global__ void __launch_bounds__(THREADS, 1) embed_conv_kernel(
             make_uint4(0, 0, 0, 0);
     const Epilogue<T> epilogue(bias + c0, slope, leaky);
 
-    const int step = gridDim.x / n_slices;
-    int tile = blockIdx.x / n_slices;
-    // this thread's staged offset (thread i < TL + HALO stages position t0 - 5 + i)
-    auto stage = [&](int tl) {
-        const int row = tl / tiles_per_row;
-        const int t = (tl - row * tiles_per_row) * TL - HALO + static_cast<int>(threadIdx.x);
-        return row_offset<BASES>(in, row, t, L, n, V);
+    // the warps of a slice stride over the units of WPOS positions
+    const int step = gridDim.x / n_slices * WARPS;
+    int unit = blockIdx.x / n_slices * WARPS + warp;
+    // lane wl < WPOS + HALO stages position t0 - 5 + wl of a unit
+    const bool stager = wl < WPOS + HALO;
+    auto stage = [&](int u) {
+        if (!stager || u >= n_units) return 0;
+        const int row = u / units_per_row;
+        return row_offset<BASES>(in, row, (u - row * units_per_row) * WPOS - HALO + wl, L, n, V);
     };
-    int staged = threadIdx.x < TL + HALO && tile < n_tiles ? stage(tile) : 0;
-    for (int buf = 0; tile < n_tiles; tile += step, buf ^= 1) {
-        int* tb = tok + buf * TOK;
-        if (threadIdx.x < TL + HALO) tb[threadIdx.x] = staged;
-        gt::cp_async_wait_all();  // the table, before the first tile
-        __syncthreads();
-        // the next tile's offsets load while this one is computed
-        if (threadIdx.x < TL + HALO && tile + step < n_tiles) staged = stage(tile + step);
-        const int row = tile / tiles_per_row;
-        const int t0 = (tile - row * tiles_per_row) * TL;
-        const int4 lo = *reinterpret_cast<const int4*>(tb + PPT * q);
-        const int4 hi = *reinterpret_cast<const int4*>(tb + PPT * q + 4);
-        const int offs[PPT + HALO] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w, tb[PPT * q + 8]};
+    auto put = [&](int staged) {
+        __syncwarp();  // the warp is done with the last unit's offsets
+        if (stager) offsets[wl] = staged;
+        __syncwarp();
+    };
+    auto compute = [&](int u) {
+        const int row = u / units_per_row;
+        const int t = (u - row * units_per_row) * WPOS + PPT * q;  // this thread's first position
+        const int4 lo = *reinterpret_cast<const int4*>(offsets + PPT * q);
+        const int4 hi = *reinterpret_cast<const int4*>(offsets + PPT * q + 4);
+        const int offs[PPT + HALO] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w, offsets[PPT * q + 8]};
         const unsigned char* table = smem + lane * 16;
-        T* dst = out + ((size_t)row * L + t0 + PPT * q) * C + c0;
+        T* dst = out + ((size_t)row * L + t) * C + c0;
         // the six rows of position p + 1 load while position p is summed
         uint4 rows[2][KS];
 #pragma unroll
@@ -206,10 +210,25 @@ __global__ void __launch_bounds__(THREADS, 1) embed_conv_kernel(
 #pragma unroll
             for (int k = 0; k < KS; ++k) add_row(acc, rows[p % 2][k], k == 0);
             const uint4 v = epilogue(acc);
-            if (t0 + PPT * q + p < L) *reinterpret_cast<uint4*>(dst + (size_t)p * C) = v;
+            if (t + p < L) *reinterpret_cast<uint4*>(dst + (size_t)p * C) = v;
         }
-    }
+    };
+    // two units a turn, each unit's offsets loaded two units ahead (s0 and
+    // s1 are never copied into each other, so no load is waited for early)
+    int s0 = stage(unit), s1 = stage(unit + step);
     gt::cp_async_wait_all();
+    __syncthreads();  // the table is in place
+    while (unit < n_units) {
+        put(s0);
+        s0 = stage(unit + 2 * step);
+        compute(unit);
+        unit += step;
+        if (unit >= n_units) break;
+        put(s1);
+        s1 = stage(unit + 2 * step);
+        compute(unit);
+        unit += step;
+    }
 }
 
 template <typename T, bool BASES>
@@ -219,10 +238,10 @@ int launch(const void* in, const void* w, const void* bias, void* out, int B, in
     const size_t smem = smem_bytes(V);
     if (V < 1 || C < SC || C % SC != 0 || smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
     const int n_slices = C / SC;
-    const int tiles_per_row = (L + TL - 1) / TL;
-    const long long n_tiles = (long long)B * tiles_per_row;
-    if (n_tiles == 0) return static_cast<int>(cudaSuccess);
-    if (n_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    const int units_per_row = (L + WPOS - 1) / WPOS;
+    const long long n_units = (long long)B * units_per_row;
+    if (n_units == 0) return static_cast<int>(cudaSuccess);
+    if (n_units > INT_MAX / 2) return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -230,11 +249,11 @@ int launch(const void* in, const void* w, const void* bias, void* out, int B, in
         err = cudaFuncSetAttribute(embed_conv_kernel<T, BASES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    // blocks per slice: the SMs a slice gets, at most one per tile
-    const int per_slice = static_cast<int>(std::min<long long>(std::max(1, sms / n_slices), n_tiles));
+    // blocks per slice: the SMs a slice gets, no more than its units need
+    const int per_slice = static_cast<int>(std::min<long long>(std::max(1, sms / n_slices), (n_units + WARPS - 1) / WARPS));
     embed_conv_kernel<T, BASES><<<per_slice * n_slices, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         in, static_cast<const T*>(w), static_cast<const T*>(bias), static_cast<T*>(out), L, n, V, C, n_slices,
-        tiles_per_row, static_cast<int>(n_tiles), slope, leaky);
+        units_per_row, static_cast<int>(n_units), slope, leaky);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,12 +7,13 @@ Builds ``genomad_torch/csrc/embed_conv.cu`` and, from the same source with
 lines edited, kernels that skip the shared-memory table loads (each tap's
 row comes from registers: the sums, the epilogue and the stores alone), the
 output stores (the loads and the arithmetic alone), or everything but the
-stores (the staging of each tile's tokens and the store stream). Their
+stores (the staging of each unit's tokens and the store stream). Their
 outputs are wrong by design; only their times mean something. Each runs at
 B x L x 128 (default 128 x 6,016, the nn path's shape) on tokens of random
-DNA, in turns with the others and with two yardsticks:
-``F.embedding_bag`` over the same table rows, and a ``zero_`` of the output,
-which writes the bytes K5 must write at the rate the card's memory reaches.
+DNA, in turns with the others and with three yardsticks:
+``F.embedding_bag`` over the same table rows, and a ``zero_`` and a
+``fill_`` with 1 of the output, which write the bytes K5 must write at the
+rate the card's memory reaches.
 Prints milliseconds per launch (min and median of the turns), and the median
 SM clock and board power nvidia-smi reads while each runs alone for a
 second, as one JSON line, beside the card's name and power limit. A
@@ -40,7 +41,7 @@ _LOADS = (
     ("= *reinterpret_cast<const uint4*>(table + k * tap_bytes + offs[p + 1 + k]);",
      "= make_uint4(offs[p + 1 + k], k, lane, p);"),
 )
-_STORES = (("if (t0 + PPT * q + p < L) *reinterpret_cast", "if (t0 + PPT * q + p < L && v.x == 1u) *reinterpret_cast"),)
+_STORES = (("if (t + p < L) *reinterpret_cast", "if (t + p < L && v.x == 1u) *reinterpret_cast"),)
 _SUMS = (("const uint4 v = epilogue(acc);", "const uint4 v = make_uint4(offs[p], p, q, lane);"),)
 ABLATIONS = {
     "kernel": (),
@@ -88,11 +89,13 @@ def _build_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def main(B: int = 128, L: int = 6016, turns: int = 3) -> dict:
+def measure(sources: dict[str, str], B: int = 128, L: int = 6016, turns: int = 3) -> dict:
+    """Builds each source and times its kernel beside the others and the
+    yardsticks, as the module's docstring says."""
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this tool times kernels on the card")
     C, V = _build.TC_CHANNELS, 257
-    libs = _build_all(ablated_sources((_build.CSRC / "embed_conv.cu").read_text()))
+    libs = _build_all(sources)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bases = torch.randint(0, 4, (B, L + 3), generator=gen, device="cuda", dtype=torch.uint8)
     tokens = conv.tokens_from_bases(bases).contiguous()
@@ -114,7 +117,8 @@ def main(B: int = 128, L: int = 6016, turns: int = 3) -> dict:
     bag = torch.where(bag >= 0, bag + V * torch.arange(6, device="cuda"), torch.full_like(bag, 6 * V)).reshape(-1, 6)
     runs = {name: (lambda lib=lib: launch(lib)) for name, lib in libs.items()}
     runs["F.embedding_bag"] = lambda: torch.nn.functional.embedding_bag(bag, table, mode="sum")
-    runs["zero_ of the output (store floor)"] = out.zero_
+    runs["zero_ of the output"] = out.zero_
+    runs["fill_ of the output with 1 (store floor)"] = lambda: out.fill_(1.0)
     times = {name: [] for name in runs}
     for _ in range(turns):  # in turns, forward and back, so drift hits every run alike
         for name in list(runs) + list(runs)[::-1]:
@@ -128,6 +132,10 @@ def main(B: int = 128, L: int = 6016, turns: int = 3) -> dict:
     }
     print(json.dumps(result))
     return result
+
+
+def main(B: int = 128, L: int = 6016) -> dict:
+    return measure(ablated_sources((_build.CSRC / "embed_conv.cu").read_text()), B, L)
 
 
 if __name__ == "__main__":
