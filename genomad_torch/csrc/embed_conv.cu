@@ -21,17 +21,20 @@
 // (198,144 B at V = 257), copied once with 16-byte cp.async, row V of each
 // tap zeroed. The grid is the SM count rounded down to a multiple of the
 // slice count; block i takes slice i % n_slices. Past the one barrier that
-// waits for the table, the 16 warps of a block run on their own: the warps
+// waits for the table, the 32 warps of a block run on their own: the warps
 // of a slice stride over units of WPOS = 16 positions of one batch row, and
 // each warp stages its unit's 16 + 5 table row offsets in its own shared
 // buffer (loaded into registers two units ahead; __syncwarp only). A
 // thread owns 16 bytes of channels (8 bf16 or 4 f32) of 4 consecutive
 // positions: per position six 16-byte shared loads, one per tap (the 8
 // lanes of a row read its 128 bytes; a warp reads 4 rows in 4 wavefronts, no
-// bank conflicts), issued while the position before is summed; f32 sums in
-// tap order k = 0..5 (the plain version's order, so the result is
-// bit-equal to it); the epilogue with the JAX rounding points (bf16x2 in
-// bf16); one 16-byte store (the 8 lanes write a full 128-byte segment).
+// bank conflicts); f32 sums in tap order k = 0..5 (the plain version's
+// order, so the result is bit-equal to it); the epilogue with the JAX
+// rounding points (bf16x2 in bf16); one 16-byte store (the 8 lanes write a
+// full 128-byte segment). The block has 1,024 threads: measured on the card,
+// 16 warps an SM kept too few stores in flight to stream the output (a body
+// that only stores took 0.077 ms where a fill of the same bytes takes
+// 0.062), and 32 warps took K5 from 0.105 to 0.084 ms (PERF.md, section 6).
 //
 // The bases form (embed_conv_bases_launch) is the same body with the 4-mer
 // tokenizer of igloo's `_tokens_from_bases(_pad_bases(.))` fused into the
@@ -55,7 +58,7 @@ constexpr int KS = 6;
 constexpr int HALO = KS - 1;
 constexpr int ROW_BYTES = 128;           // one channel slice of one table row
 constexpr int LANES = ROW_BYTES / 16;    // threads per row slice, 16 bytes each
-constexpr int THREADS = 512;
+constexpr int THREADS = 1024;  // 32 warps: one block an SM, at most 64 registers a thread
 constexpr int WARPS = THREADS / 32;
 constexpr int PPT = 4;                   // consecutive positions per thread
 constexpr int WPOS = 32 / LANES * PPT;   // 16 positions per warp and unit
@@ -195,20 +198,12 @@ __global__ void __launch_bounds__(THREADS, 1) embed_conv_kernel(
         const int offs[PPT + HALO] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w, offsets[PPT * q + 8]};
         const unsigned char* table = smem + lane * 16;
         T* dst = out + ((size_t)row * L + t) * C + c0;
-        // the six rows of position p + 1 load while position p is summed
-        uint4 rows[2][KS];
-#pragma unroll
-        for (int k = 0; k < KS; ++k) rows[0][k] = *reinterpret_cast<const uint4*>(table + k * tap_bytes + offs[k]);
 #pragma unroll
         for (int p = 0; p < PPT; ++p) {
-            if (p + 1 < PPT) {
-#pragma unroll
-                for (int k = 0; k < KS; ++k)
-                    rows[(p + 1) % 2][k] = *reinterpret_cast<const uint4*>(table + k * tap_bytes + offs[p + 1 + k]);
-            }
             float acc[EPT];
 #pragma unroll
-            for (int k = 0; k < KS; ++k) add_row(acc, rows[p % 2][k], k == 0);
+            for (int k = 0; k < KS; ++k)
+                add_row(acc, *reinterpret_cast<const uint4*>(table + k * tap_bytes + offs[p + k]), k == 0);
             const uint4 v = epilogue(acc);
             if (t + p < L) *reinterpret_cast<uint4*>(dst + (size_t)p * C) = v;
         }

@@ -25,9 +25,9 @@ HALO = K_SIZE - 1
 LEAKY_SLOPE = 0.1
 N_CODE = 4  # base code of N / unknown
 # K5's shared memory: a 128-byte channel slice of 6 x (V + 1) table rows and
-# 24 staged row offsets for each of 16 warps, within the 232,448 B of a block
+# 24 staged row offsets for each of 32 warps, within the 232,448 B of a block
 EMBED_SLICE_BYTES = 128
-EMBED_MAX_VOCAB = (232_448 - 16 * 24 * 4) // (K_SIZE * EMBED_SLICE_BYTES) - 1
+EMBED_MAX_VOCAB = (232_448 - 32 * 24 * 4) // (K_SIZE * EMBED_SLICE_BYTES) - 1
 
 _SIGNATURES = {
     "embed_conv": {

@@ -6,8 +6,9 @@ itself with one part taken out, timed on the card.
 Builds ``genomad_torch/csrc/embed_conv.cu`` and, from the same source with
 lines edited, kernels that skip the shared-memory table loads (each tap's
 row comes from registers: the sums, the epilogue and the stores alone), the
-output stores (the loads and the arithmetic alone), or everything but the
-stores (the staging of each unit's tokens and the store stream). Their
+output stores (the loads and the arithmetic alone), everything but the
+stores (the staging of each unit's tokens and the store stream), or
+everything after each block's copy of its table slice. Their
 outputs are wrong by design; only their times mean something. Each runs at
 B x L x 128 (default 128 x 6,016, the nn path's shape) on tokens of random
 DNA, in turns with the others and with three yardsticks:
@@ -35,19 +36,18 @@ from genomad_torch.ops import _build, conv
 from genomad_torch.tools.ablate_causal_conv import _clocks, _ms
 
 # text in embed_conv.cu -> what each ablation puts in its place
-_LOADS = (
-    ("rows[0][k] = *reinterpret_cast<const uint4*>(table + k * tap_bytes + offs[k]);",
-     "rows[0][k] = make_uint4(offs[k], k, lane, 0);"),
-    ("= *reinterpret_cast<const uint4*>(table + k * tap_bytes + offs[p + 1 + k]);",
-     "= make_uint4(offs[p + 1 + k], k, lane, p);"),
-)
+_LOADS = (("add_row(acc, *reinterpret_cast<const uint4*>(table + k * tap_bytes + offs[p + k]), k == 0);",
+           "add_row(acc, make_uint4(offs[p + k], k, lane, p), k == 0);"),)
 _STORES = (("if (t + p < L) *reinterpret_cast", "if (t + p < L && v.x == 1u) *reinterpret_cast"),)
 _SUMS = (("const uint4 v = epilogue(acc);", "const uint4 v = make_uint4(offs[p], p, q, lane);"),)
+# every block copies its table slice, then stops
+_TABLE = (("__syncthreads();  // the table is in place", "__syncthreads();  // the table is in place\n    return;"),)
 ABLATIONS = {
     "kernel": (),
     "no table loads": _LOADS,
     "no stores": _STORES,
     "staging and stores only": _LOADS + _SUMS,
+    "table copy only": _TABLE,
 }
 
 

@@ -395,7 +395,7 @@ def _k5_inputs(V=257, C=128, dtype=torch.bfloat16):
 @pytest.mark.parametrize(
     "case, match",
     [
-        (lambda: _k5_inputs(V=conv.EMBED_MAX_VOCAB + 1), "V <= 299"),
+        (lambda: _k5_inputs(V=conv.EMBED_MAX_VOCAB + 1), "V <= 297"),
         (lambda: _k5_inputs(C=96), "multiple of 64"),
         (lambda: _k5_inputs(C=48, dtype=torch.float32), "multiple of 32"),
         (lambda: (torch.zeros(6 * 257 * 128 + 1, dtype=torch.bfloat16)[1:].view(6, 257, 128), _k5_inputs()[1]),
@@ -414,9 +414,9 @@ def test_embed_conv_checks_its_table(case, match):
 
 
 def test_embed_conv_check_passes_what_the_kernel_takes():
-    assert conv.EMBED_MAX_VOCAB == 299
+    assert conv.EMBED_MAX_VOCAB == 297
     assert conv._check_embed(*_k5_inputs()) == (257, 128)
-    assert conv._check_embed(*_k5_inputs(V=299, C=64)) == (299, 64)
+    assert conv._check_embed(*_k5_inputs(V=297, C=64)) == (297, 64)
     assert conv._check_embed(*_k5_inputs(C=32, dtype=torch.float32)) == (257, 32)
 
 
