@@ -14,14 +14,17 @@ only the full run, with no arguments, does.
 1. device   - requires CUDA; prints the card's name and power limit.
 2. build    - compiles every kernel of ``genomad_torch/csrc`` with nvcc,
               one process per source, all started together.
-3. kernels  - holds K5 embed_conv, K4 causal_conv, K2 fused_reduce and K3
-              patch_reduce against their plain PyTorch versions at the nn
-              path's shapes (B=128, L=6016, C=128, full-size synthetic
-              weights, tokens from random DNA with N runs) in bf16 and in
-              f32 (TF32 off), and at a ragged shape; K2 and K3 also on
-              ``fused_reduce_edge_cases`` (K3's mpi bit-equal to K2's) and
-              K4 at the edges of its persistent schedule (B=1 L=70, B=133
-              L=6016, L=5), each bit-equal to itself on a rerun; times
+3. kernels  - holds K5 embed_conv (tokens) and embed_conv_bases (base
+              codes, the tokenizer fused in), K4 causal_conv, K2
+              fused_reduce and K3 patch_reduce against their plain PyTorch
+              versions at the nn path's shapes (B=128, L=6016, C=128,
+              full-size synthetic weights, random DNA with N runs) in bf16
+              and in f32 (TF32 off), and at a ragged shape; K5 bit for bit,
+              also on ``embed_conv_edge_cases`` (its two forms equal to each
+              other); K2 and K3 also on ``fused_reduce_edge_cases`` (K3's
+              mpi bit-equal to K2's) and K4 at the edges of its persistent
+              schedule (B=1 L=70, B=133 L=6016, L=5); K5, K4 and K2 each
+              bit-equal to themselves on a rerun; times
               kernel, plain version and the PyTorch library call that
               computes the same function, beside the card's bound, and K2
               and K3 with all, a quarter and none of the patches.
@@ -36,10 +39,12 @@ only the full run, with no arguments, does.
               the cells/s. ``--only sw`` is the loop for K1 work.
 5. main     - nn-classification through its entry point on a synthetic
               metagenome of >= 24 Mbp (bf16, batch 128); checks the TSV, the
-              kernels' launch counts, and the f32 forward with the kernels
-              against the all-plain f32 forward on the CPU.
+              kernels' launch counts (K5's bases form, never its token
+              form), and the f32 forward with the kernels against the
+              all-plain f32 forward on the CPU.
 6. forward  - the forward profiler (genomad_torch.tools.profile_forward,
-              K3's path) at B=128: ms per stage, K3's launches.
+              the path of K3 and of K5's token form) at B=128: ms per stage,
+              their launches.
 7. annotate - annotate through its entry point on a DB directory with the
               20,000-profile integral DB and a 16-profile integrase DB, over
               a ~2 Mbp synthetic genome with planted marker genes; checks the
@@ -217,6 +222,9 @@ def kernel_phase(results: dict) -> None:
         h1 = conv.embed_conv(tokens, k1, b1)
         e5 = bit_equal(h1, conv.embed_conv_plain(tokens, k1, b1), f"K5 {name}")
         bit_equal(conv.embed_conv(tokens, k1, b1, False), conv.embed_conv_plain(tokens, k1, b1, False), f"K5 {name} no leaky")
+        hb = conv.embed_conv_bases(bases, k1, b1, L)
+        bit_equal(hb, conv.embed_conv_bases_plain(bases, k1, b1, L), f"K5 bases {name}")
+        bit_equal(hb, h1, f"K5 bases {name} against the token kernel")
         h2 = conv.causal_conv(h1, p["conv2"]["kernel"], p["conv2"]["bias"])
         e4 = max_err(h2, conv.causal_conv_plain(h1, p["conv2"]["kernel"], p["conv2"]["bias"]), dtype)
         e4n = max_err(
@@ -235,11 +243,12 @@ def kernel_phase(results: dict) -> None:
         if not torch.equal(mpi3, mpi):  # one code path: K3's mpi is K2's bit for bit
             raise AssertionError(f"K3 mpi differs from K2 mpi ({dtype}) in {int((mpi3 != mpi).sum())} values")
         torch.cuda.synchronize()
-        log(f"# kernels {name} B={B} L={L}: K5 bit-equal (with and without LeakyReLU)  K4 {e4:.3g} (no leaky {e4n:.3g})  K2 mpi {e2m:.3g} pooled {e2p:.3g}  "
+        log(f"# kernels {name} B={B} L={L}: K5 bit-equal (with and without LeakyReLU; the bases form too)  K4 {e4:.3g} (no leaky {e4n:.3g})  K2 mpi {e2m:.3g} pooled {e2p:.3g}  "
             f"K3 {e3:.3g} (bit-equal to K2 mpi)")
         if dtype == torch.bfloat16:
             entries = {
                 "embed_conv": dict(err=e5, args=(tokens, p["conv1"]["kernel"], p["conv1"]["bias"])),
+                "embed_conv_bases": dict(err=e5, args=(bases, p["conv1"]["kernel"], p["conv1"]["bias"], L)),
                 "causal_conv": dict(err=max(e4, e4n), args=(h1, p["conv2"]["kernel"], p["conv2"]["bias"])),
                 "fused_reduce": dict(err=max(e2m, e2p), args=(h1, ig["patches"], ig["w_patch"], ig["w_v"]), slots=ig["slots"]),
                 "patch_reduce": dict(err=e3, args=(h1, ig["patches"], ig["w_patch"])),
@@ -268,9 +277,13 @@ def kernel_phase(results: dict) -> None:
             k1 = torch.from_numpy(erng.normal(0, 0.2, (6, 257, C)).astype(np.float32)).to(dev, dtype)
             bias = torch.from_numpy(erng.normal(0, 0.2, C).astype(np.float32)).to(dev, dtype)
             what = f"K5 edge case {case} {str(dtype).split('.')[1]}"
-            bit_equal(conv.embed_conv(tok, k1, bias), conv.embed_conv_plain(tok, k1, bias), what)
+            x = conv.embed_conv(tok, k1, bias)
+            bit_equal(x, conv.embed_conv_plain(tok, k1, bias), what)
+            xb = conv.embed_conv_bases(bases_e, k1, bias, Le)
+            bit_equal(xb, conv.embed_conv_bases_plain(bases_e, k1, bias, Le), what + " bases")
+            bit_equal(xb, x, what + " bases against the token kernel")
         torch.cuda.synchronize()
-        log(f"# K5 edge case {case} B={tok.shape[0]} L={Le}: bit-equal (f32, bf16)")
+        log(f"# K5 edge case {case} B={tok.shape[0]} L={Le}: bit-equal, the bases form too (f32, bf16)")
 
     # K2 and K3 at the edges of their persistent schedule, f32 and bf16
     for name, (yn, pn, wpn, wvn) in fused_reduce_edge_cases().items():
@@ -292,7 +305,8 @@ def kernel_phase(results: dict) -> None:
 
     tok, k1, b1 = entries["embed_conv"]["args"]
     bit_equal(conv.embed_conv(tok, k1, b1), conv.embed_conv(tok, k1, b1), "K5 rerun")
-    log(f"# K5 rerun at B={B} L={L}: bit-equal")
+    bit_equal(conv.embed_conv_bases(bases, k1, b1, L), conv.embed_conv_bases(bases, k1, b1, L), "K5 bases rerun")
+    log(f"# K5 rerun at B={B} L={L}: bit-equal, the bases form too")
 
     # K4's persistent schedule (tiles of 64 rows, two per block and round,
     # one block per SM) at its edges, bf16: one tile plus a ragged one; a
@@ -337,6 +351,16 @@ def kernel_phase(results: dict) -> None:
             library=lambda: torch.nn.functional.embedding_bag(bag, table, mode="sum"),
             bound=bound(tok.numel() * 4 + k1.numel() * es + C * es + B * L * C * es, f32_flops=B * L * C * 6),
             replaces="genomad_tpu/ops/conv_pallas.py:160",
+            source="genomad_torch/csrc/embed_conv.cu",
+            launches_per_batch=None,  # on the forward profiler's path; the nn module runs the bases form
+        ),
+        "embed_conv_bases": dict(
+            kernel=lambda: conv.embed_conv_bases(bases, k1, b1, L),
+            plain=lambda: conv.embed_conv_bases_plain(bases, k1, b1, L),
+            library=None,  # no single PyTorch call tokenizes and embeds
+            bound=bound(bases.numel() + k1.numel() * es + C * es + B * L * C * es, f32_flops=B * L * C * 6),
+            replaces="genomad_tpu/ops/conv_pallas.py:160",
+            source="genomad_torch/csrc/embed_conv.cu",
             launches_per_batch=1,
         ),
         "causal_conv": dict(
@@ -542,8 +566,8 @@ def main_path_phase(results: dict, workdir: Path, card: str) -> dict:
     out_dir = workdir / "out"
 
     # launches made above to compare and time the kernels do not count
-    kernels = (conv.embed_conv, conv.causal_conv, patch_reduce.fused_reduce)
-    for k in kernels:
+    kernels = (conv.embed_conv_bases, conv.causal_conv, patch_reduce.fused_reduce)
+    for k in (*kernels, conv.embed_conv):
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -603,6 +627,8 @@ def main_path_phase(results: dict, workdir: Path, card: str) -> dict:
     expect = {name: results[name]["launches_per_batch"] * n_batches for name in launches}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect} for {n_batches} batches")
+    if conv.embed_conv.launches:  # the bases are tokenized inside the kernel only
+        raise AssertionError(f"the token kernel ran {conv.embed_conv.launches} times on the nn path")
 
     log("# where the time goes: " + json.dumps(where_the_time_goes(fasta, outputs.seq_window_id_output, workdir)))
     return summary
@@ -1109,7 +1135,7 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
     total_bp += sum(len(s) for _, s in planted)
     setup_s = time.perf_counter() - t0
 
-    for k in (conv.embed_conv, conv.causal_conv, patch_reduce.fused_reduce):
+    for k in (conv.embed_conv, conv.embed_conv_bases, conv.causal_conv, patch_reduce.fused_reduce):
         k.launches = 0
     sw.sw_pairs.launches = sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = 0
     native.native_prefilter_batch.uses = 0
@@ -1120,7 +1146,8 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, rev = sw.sw_pairs.forward_launches, sw.sw_pairs.reverse_launches
-    nn_launches = conv.embed_conv.launches + conv.causal_conv.launches + patch_reduce.fused_reduce.launches
+    nn_launches = (conv.embed_conv.launches + conv.embed_conv_bases.launches + conv.causal_conv.launches
+                   + patch_reduce.fused_reduce.launches)
     stats = dict(ps.STATS)
 
     outputs = GenomadOutputs(fasta.stem, workdir / "out")
@@ -1283,17 +1310,21 @@ def real_db_phase() -> dict:
 
 
 def forward_phase(results: dict) -> dict:
-    from genomad_torch.ops import patch_reduce
+    from genomad_torch.ops import conv, patch_reduce
     from genomad_torch.tools import profile_forward
 
-    patch_reduce.patch_reduce.launches = 0
+    patch_reduce.patch_reduce.launches = conv.embed_conv.launches = conv.embed_conv_bases.launches = 0
     torch.cuda.synchronize()
     out = profile_forward.profile_forward(BATCH)
     torch.cuda.synchronize()
     launches = patch_reduce.patch_reduce.launches
     if launches <= 0 or launches != out["k3_launches"]:
         raise AssertionError(f"K3 launches on the forward profiler's path: {launches}")
+    if conv.embed_conv.launches <= 0 or conv.embed_conv_bases.launches <= 0:
+        raise AssertionError(f"K5 launches on the forward profiler's path: tokens {conv.embed_conv.launches}, "
+                             f"bases {conv.embed_conv_bases.launches}")
     results["patch_reduce"]["launches"] = launches
+    results["embed_conv"]["launches"] = conv.embed_conv.launches
     log("# forward by stage: " + json.dumps(out))
     return out
 
@@ -1393,6 +1424,7 @@ def _kernel_counts() -> dict:
         "sw_pairs_forward": sw.sw_pairs.forward_launches,
         "sw_pairs_reverse": sw.sw_pairs.reverse_launches,
         "embed_conv": conv.embed_conv.launches,
+        "embed_conv_bases": conv.embed_conv_bases.launches,
         "causal_conv": conv.causal_conv.launches,
         "fused_reduce": patch_reduce.fused_reduce.launches,
         "patch_reduce": patch_reduce.patch_reduce.launches,
@@ -1403,12 +1435,12 @@ def _reset_kernel_counts() -> None:
     from genomad_torch.ops import conv, patch_reduce, sw
 
     sw.sw_pairs.launches = sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = 0
-    for k in (conv.embed_conv, conv.causal_conv, patch_reduce.fused_reduce, patch_reduce.patch_reduce):
+    for k in (conv.embed_conv, conv.embed_conv_bases, conv.causal_conv, patch_reduce.fused_reduce, patch_reduce.patch_reduce):
         k.launches = 0
 
 
 K1_COUNTS = ("sw_pairs_forward", "sw_pairs_reverse")
-NN_COUNTS = ("embed_conv", "causal_conv", "fused_reduce")
+NN_COUNTS = ("embed_conv_bases", "causal_conv", "fused_reduce")
 
 
 class StageRecorder:
@@ -1534,8 +1566,8 @@ def end_to_end_phase(results: dict, workdir: Path, db) -> dict:
         got = by_stage.get(stage, {}).get("launches", {})
         if not all(got.get(k, 0) > 0 for k in nn):
             raise AssertionError(f"K5/K4/K2 did not all launch in {stage}: {got}")
-    if launches["patch_reduce"]:
-        raise AssertionError("K3 ran on the end-to-end path")
+    if launches["patch_reduce"] or launches["embed_conv"]:
+        raise AssertionError(f"K3 or K5's token form ran on the end-to-end path: {launches}")
     if any(launches[k] != sum(c["launches"][k] for c in rec.calls) for k in launches):
         raise AssertionError(f"kernel launches outside the module entry points: {launches}")
 
@@ -1557,7 +1589,7 @@ def end_to_end_phase(results: dict, workdir: Path, db) -> dict:
     if not np.isfinite(calibrated).all() or calibrated.shape[1] != 3:
         raise AssertionError("calibrated aggregated scores are not finite (N, 3)")
 
-    for name in ("sw_pairs", "embed_conv", "causal_conv", "fused_reduce"):
+    for name in ("sw_pairs", "embed_conv_bases", "causal_conv", "fused_reduce"):
         results[name]["launches"] = launches[name] if name != "sw_pairs" else launches["sw_pairs_forward"] + launches["sw_pairs_reverse"]
     summary = {
         "input_bp": total_bp,
@@ -1576,7 +1608,7 @@ def end_to_end_phase(results: dict, workdir: Path, db) -> dict:
             **({"k1_launches": {"forward": c["launches"]["sw_pairs_forward"], "reverse": c["launches"]["sw_pairs_reverse"]},
                 "pairs": {"forward": c["pairs_forward"], "reverse": c["pairs_reverse"]}}
                if c["launches"]["sw_pairs_forward"] else {}),
-            **({"nn_launches": {k: c["launches"][k] for k in nn}} if c["launches"]["embed_conv"] else {}),
+            **({"nn_launches": {k: c["launches"][k] for k in nn}} if c["launches"]["embed_conv_bases"] else {}),
         }
         for stage, c in by_stage.items()
     }

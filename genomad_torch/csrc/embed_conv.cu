@@ -259,3 +259,10 @@ extern "C" int embed_conv_launch(const void* tokens, const void* w, const void* 
     return is_bf16 ? launch<gt::bf16, false>(tokens, w, bias, out, B, L, L, V, C, slope, leaky, stream)
                    : launch<float, false>(tokens, w, bias, out, B, L, L, V, C, slope, leaky, stream);
 }
+
+// The bases form: uint8 codes (B, n) in place of the tokens; out (B, L, C).
+extern "C" int embed_conv_bases_launch(const void* bases, const void* w, const void* bias, void* out, int B, int n,
+                                       int L, int V, int C, int is_bf16, float slope, int leaky, void* stream) {
+    return is_bf16 ? launch<gt::bf16, true>(bases, w, bias, out, B, n, L, V, C, slope, leaky, stream)
+                   : launch<float, true>(bases, w, bias, out, B, n, L, V, C, slope, leaky, stream);
+}

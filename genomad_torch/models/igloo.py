@@ -3,8 +3,9 @@
 Inference graph, per 6,000 bp window (5,997 tokens, trunk padded to
 L_PAD = 6,016 positions):
 
-    bases (B, 6000) -> N-pad to 6019 -> tokens (B, 6016) in [0, 256]
-      | K5 embed_conv: conv1 (one-hot(257), causal, width 6) + LeakyReLU
+    bases (B, 6000) uint8 -> tokens (B, 6016) in [0, 256], N-padded
+      | K5 embed_conv_bases: the 4-mer tokens and conv1 (one-hot(257),
+      | causal, width 6) + LeakyReLU in one kernel
     h1 (B, 6016, 128) --- IGLOO kernel 1 (K2 fused_reduce + attention) ---.
       | K4 causal_conv x2: conv2, conv3 (+ LeakyReLU)                       |
     h3 (B, 6016, 128) --- IGLOO kernel 2 (K2 fused_reduce + attention) ---+
@@ -206,12 +207,11 @@ class IglooClassifier(torch.nn.Module):
     def _dense_bn_relu(x, dense, bn):
         return torch.relu((torch.matmul(x, dense.kernel) + dense.bias) * bn.scale + bn.shift)
 
-    def forward_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """(B, L) int32 tokens in [0, 256] -> (B, 3) float32 class probs
-        (the JAX ``apply`` with its trunk at length L)."""
-        if self._max_patch >= tokens.shape[1]:
-            raise ValueError(f"patch position {self._max_patch} is outside a trunk of length {tokens.shape[1]}")
-        h1 = conv.embed_conv(tokens.contiguous(), self.conv1.kernel, self.conv1.bias)
+    def _trunk(self, h1: torch.Tensor) -> torch.Tensor:
+        """conv1's output (B, L, C) -> (B, 3) float32 class probs: the rest
+        of the forward (the JAX ``_forward_from_h1``)."""
+        if self._max_patch >= h1.shape[1]:
+            raise ValueError(f"patch position {self._max_patch} is outside a trunk of length {h1.shape[1]}")
         a = self._igloo_kernel(h1, self.igloo1)
         h2 = conv.causal_conv(h1, self.conv2.kernel, self.conv2.bias)
         h3 = conv.causal_conv(h2, self.conv3.kernel, self.conv3.bias)
@@ -222,8 +222,13 @@ class IglooClassifier(torch.nn.Module):
         logits = (torch.matmul(hid, self.out_dense.kernel) + self.out_dense.bias).float()
         return torch.softmax(logits, dim=-1)
 
+    def forward_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, L) int32 tokens in [0, 256] -> (B, 3) float32 class probs
+        (the JAX ``apply`` with its trunk at length L)."""
+        return self._trunk(conv.embed_conv(tokens.contiguous(), self.conv1.kernel, self.conv1.bias))
+
     def forward_bases(self, bases: torch.Tensor) -> torch.Tensor:
-        """(B, 6000) base codes (ACGT = 0..3, N = 4; any integer dtype) ->
-        (B, 3) float32 class probs: the JAX ``apply_bases`` (tokenized on the
-        device, trunk padded to L_PAD)."""
-        return self.forward_tokens(conv.tokens_from_bases(conv.pad_bases(bases, L_PAD + 3)))
+        """(B, 6000) base codes (ACGT = 0..3, N = 4), uint8 on the card ->
+        (B, 3) float32 class probs: the JAX ``apply_bases``, with the 4-mer
+        tokenizer fused into conv1's kernel and the trunk padded to L_PAD."""
+        return self._trunk(conv.embed_conv_bases(bases.contiguous(), self.conv1.kernel, self.conv1.bias, L_PAD))

@@ -32,6 +32,7 @@ EMBED_MAX_VOCAB = (232_448 - 32 * 24 * 4) // (K_SIZE * EMBED_SLICE_BYTES) - 1
 _SIGNATURES = {
     "embed_conv": {
         "embed_conv_launch": [_build.P] * 4 + [_build.I] * 5 + [_build.F, _build.I, _build.P],
+        "embed_conv_bases_launch": [_build.P] * 4 + [_build.I] * 6 + [_build.F, _build.I, _build.P],
     },
     "causal_conv": {
         "causal_conv_launch": [_build.P] * 4 + [_build.I] * 4 + [_build.F, _build.I, _build.P],
@@ -127,6 +128,55 @@ def embed_conv(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, a
 
 
 embed_conv.launches = 0
+
+
+def embed_conv_bases_plain(bases: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, length: int, apply_leaky: bool = True) -> torch.Tensor:
+    """conv1 on base codes: :func:`embed_conv_plain` on the tokens of the
+    port's tokenizer, each row N-padded (or cut) to ``length + 3`` bases."""
+    return embed_conv_plain(tokens_from_bases(pad_bases(bases, length + 3)), kernel, bias, apply_leaky)
+
+
+def embed_conv_bases(bases: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, length: int, apply_leaky: bool = True) -> torch.Tensor:
+    """First-layer conv fed with base codes, the 4-mer tokenizer fused into
+    the kernel: (B, n) codes (ACGT = 0..3, anything >= 4 N; bases past n are
+    N) -> (B, length, C) in the kernel's dtype, equal to
+    ``embed_conv(tokens_from_bases(pad_bases(bases, length + 3)), ...)``.
+
+    On the card the kernel takes uint8 codes, as the nn pipeline sends them,
+    and a table of V >= 257 rows (the tokens are [0, 256]); the table checks
+    are K5's.
+    """
+    if not _build.on_cuda(bases, kernel, bias):
+        return embed_conv_bases_plain(bases, kernel, bias, length, apply_leaky)
+    V, C = _check_bases(bases, kernel, bias, length)
+    B, n = bases.shape
+    out = torch.empty((B, length, C), dtype=kernel.dtype, device=bases.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("embed_conv", _SIGNATURES["embed_conv"])
+    with torch.cuda.device(bases.device):
+        err = lib.embed_conv_bases_launch(
+            bases.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            B, n, length, V, C, int(kernel.dtype == torch.bfloat16), _slope(kernel.dtype), int(apply_leaky),
+            _build.stream_ptr(bases.device),
+        )
+    _build.check(err, "embed_conv_bases")
+    embed_conv_bases.launches += 1
+    return out
+
+
+embed_conv_bases.launches = 0
+
+
+def _check_bases(bases: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, length: int) -> tuple[int, int]:
+    """The checks the bases form makes before it launches: K5's on the
+    table, and uint8 codes (no quiet cast). Returns (V, C)."""
+    _build.require(bases.dim() == 2 and bases.dtype == torch.uint8, "bases must be (B, n) uint8 codes")
+    _build.require(bases.is_contiguous(), "inputs must be contiguous")
+    _build.require(length >= 0, "length must be >= 0")
+    V, C = _check_embed(kernel, bias)
+    _build.require(V >= 257, "the 4-mer tokens need V >= 257")
+    return V, C
 
 
 def _check_embed(kernel: torch.Tensor, bias: torch.Tensor) -> tuple[int, int]:

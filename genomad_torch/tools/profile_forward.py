@@ -4,8 +4,9 @@
 
 Counterpart of ``tools/profile_forward.py``: times each component of the
 full-width bf16 forward in isolation, by CUDA events, to locate the
-bottleneck: the full forward, tokenization, conv1 (K5 ``embed_conv``),
-conv2 + conv3 (K4 ``causal_conv``), the fused IGLOO kernel (K2
+bottleneck: the full forward, tokenization, conv1 (K5 ``embed_conv`` on
+tokens), conv1 from the bases (K5 ``embed_conv_bases``, the tokenizer fused
+in, as the full forward runs it), conv2 + conv3 (K4 ``causal_conv``), the fused IGLOO kernel (K2
 ``fused_reduce`` and the attention), the patch reduction alone (K3
 ``patch_reduce``), the value projection alone (``torch.matmul``) and the
 first head dense. Milliseconds per batch; synthetic weights from seed 0.
@@ -40,6 +41,9 @@ def forward_stages(model: igloo.IglooClassifier, bases: torch.Tensor) -> dict:
         "full forward": lambda: model.forward_bases(bases),
         "tokenize": lambda: conv.tokens_from_bases(conv.pad_bases(bases, igloo.L_PAD + 3)),
         "conv1 (K5 embed_conv)": lambda: conv.embed_conv(tokens, model.conv1.kernel, model.conv1.bias),
+        "conv1 from bases (K5, tokenizer fused)": lambda: conv.embed_conv_bases(
+            bases, model.conv1.kernel, model.conv1.bias, igloo.L_PAD
+        ),
         "conv2+conv3 (K4 causal_conv)": lambda: conv.causal_conv(
             conv.causal_conv(h1, model.conv2.kernel, model.conv2.bias), model.conv3.kernel, model.conv3.bias
         ),

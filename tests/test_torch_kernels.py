@@ -86,6 +86,31 @@ def test_embed_conv_edge_cases_match_jax(name):
     np.testing.assert_array_equal(h1.float().numpy(), np.asarray(jnp.asarray(ref, jnp.float32)))
 
 
+@pytest.mark.parametrize("name", list(chip_smoke.EMBED_EDGE_CASES))
+def test_embed_conv_bases_edge_cases_match_jax(name):
+    """The bases form's plain version on K5's edge cases (N runs, a code
+    above 4, an all-N row, rows N-padded past their bases or cut): the
+    token form on the port's tokens, bit for bit, and JAX's
+    ``_leaky_relu(_embed_onehot_conv(_tokens_from_bases(_pad_bases(.))))``
+    in f32 and, bit-equal, in bf16 (``_pad_bases`` itself at the model's
+    length, the same N padding by hand at the others)."""
+    bases, L, tokens, kernel, bias = _edge_inputs(name)
+    got = conv.embed_conv_bases_plain(_t(bases), _t(kernel), _t(bias), L)
+    assert torch.equal(got, conv.embed_conv_plain(_t(tokens), _t(kernel), _t(bias)))
+    if L == jig.L_PAD and bases.shape[1] == 6000:
+        padded = jig._pad_bases(jnp.asarray(bases, jnp.int32))
+    else:
+        padded = jnp.asarray(np.pad(bases, ((0, 0), (0, max(0, L + 3 - bases.shape[1]))), constant_values=4)[:, : L + 3])
+    jax_tokens = jig._tokens_from_bases(padded.astype(jnp.int32))
+    np.testing.assert_array_equal(np.asarray(jax_tokens), tokens)
+    ref = jig._leaky_relu(jig._embed_onehot_conv(jax_tokens, jnp.asarray(kernel), jnp.asarray(bias)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **CONV_TOL)
+    bf = jnp.bfloat16
+    got16 = conv.embed_conv_bases_plain(_t(bases), _t(kernel).bfloat16(), _t(bias).bfloat16(), L)
+    ref16 = jig._leaky_relu(jig._embed_onehot_conv(jax_tokens, jnp.asarray(kernel, bf), jnp.asarray(bias, bf)))
+    np.testing.assert_array_equal(got16.float().numpy(), np.asarray(jnp.asarray(ref16, jnp.float32)))
+
+
 def test_tokenizer_matches_jax(rng):
     """The port's one tokenizer (``conv.pad_bases``, ``conv.tokens_from_bases``)
     against JAX's ``_pad_bases`` and ``_tokens_from_bases`` on 6,000-base rows
@@ -320,19 +345,21 @@ def _wrapper_cases(rng):
     bias = _t(rng.normal(0, 0.2, 16).astype(np.float32))
     patches = _t(np.sort(rng.choice(40, (7, 4)), axis=1).astype(np.int32))
     w_patch = _t(rng.normal(size=(7, 4, 16)).astype(np.float32))
+    bases = _t(rng.integers(0, 5, (2, 37)).astype(np.uint8))
     return {
         "embed_conv": (conv.embed_conv, conv.embed_conv_plain, (tokens, k1, bias)),
+        "embed_conv_bases": (conv.embed_conv_bases, conv.embed_conv_bases_plain, (bases, k1, bias, 40)),
         "causal_conv": (conv.causal_conv, conv.causal_conv_plain, (x, k4, bias)),
         "fused_reduce": (patch_reduce.fused_reduce, patch_reduce.fused_reduce_plain, (x, patches, w_patch, k4[0])),
         "patch_reduce": (patch_reduce.patch_reduce, patch_reduce.patch_reduce_plain, (x, patches, w_patch)),
     }
 
 
-@pytest.mark.parametrize("name", ["embed_conv", "causal_conv", "fused_reduce", "patch_reduce"])
+@pytest.mark.parametrize("name", ["embed_conv", "embed_conv_bases", "causal_conv", "fused_reduce", "patch_reduce"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_tensor_takes_the_plain_version(rng, name, dtype):
     wrapper, plain, args = _wrapper_cases(rng)[name]
-    args = tuple(a if a.dtype == torch.int32 else a.to(dtype) for a in args)
+    args = tuple(a.to(dtype) if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
     before = wrapper.launches
     got, ref = wrapper(*args), plain(*args)
     for g, r in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
@@ -413,11 +440,32 @@ def test_embed_conv_checks_its_table(case, match):
         conv._check_embed(*case())
 
 
+@pytest.mark.parametrize(
+    "case, match",
+    [
+        (lambda: (torch.zeros((2, 40), dtype=torch.int32), *_k5_inputs(), 37), "uint8"),
+        (lambda: (torch.zeros((2, 40, 1), dtype=torch.uint8), *_k5_inputs(), 37), r"\(B, n\) uint8"),
+        (lambda: (torch.zeros((40, 2), dtype=torch.uint8).t(), *_k5_inputs(), 37), "contiguous"),
+        (lambda: (torch.zeros((2, 40), dtype=torch.uint8), *_k5_inputs(V=256), 37), "V >= 257"),
+        (lambda: (torch.zeros((2, 40), dtype=torch.uint8), *_k5_inputs(), -1), "length"),
+        (lambda: (torch.zeros((2, 40), dtype=torch.uint8), *_k5_inputs(C=96), 37), "multiple of 64"),
+    ],
+    ids=["int32-codes", "three-dims", "non-contiguous", "V256", "negative-length", "bf16-C96"],
+)
+def test_embed_conv_bases_checks_its_inputs(case, match):
+    """The bases form raises on what its kernel does not take, other code
+    dtypes included: no quiet cast (called directly: the CPU path is taken
+    first)."""
+    with pytest.raises(ValueError, match=match):
+        conv._check_bases(*case())
+
+
 def test_embed_conv_check_passes_what_the_kernel_takes():
     assert conv.EMBED_MAX_VOCAB == 297
     assert conv._check_embed(*_k5_inputs()) == (257, 128)
     assert conv._check_embed(*_k5_inputs(V=297, C=64)) == (297, 64)
     assert conv._check_embed(*_k5_inputs(C=32, dtype=torch.float32)) == (257, 32)
+    assert conv._check_bases(torch.zeros((2, 6000), dtype=torch.uint8), *_k5_inputs(), 6016) == (257, 128)
 
 
 def test_k5_ablations_edit_the_committed_kernel():
