@@ -24,6 +24,7 @@ K_SIZE = 6
 HALO = K_SIZE - 1
 LEAKY_SLOPE = 0.1
 N_CODE = 4  # base code of N / unknown
+N_TOKENS = 4**4 + 1  # the 4-mer tokens 1..256, and 0 where a base is N
 # K5's shared memory: a 128-byte channel slice of 6 x (V + 1) table rows and
 # 24 staged row offsets for each of 32 warps, within the 232,448 B of a block
 EMBED_SLICE_BYTES = 128
@@ -104,7 +105,8 @@ def embed_conv(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, a
     tokens: (B, L) int32 in [0, V); kernel: (6, V, C) float32 or bfloat16;
     bias: (C,) of the kernel's dtype. Returns (B, L, C) in the kernel's dtype.
     The kernel trusts the token range; the model's tokenizer produces
-    [0, 256] for the 257-row vocabulary.
+    [0, 256] for the 257-row vocabulary. On the card V <= EMBED_MAX_VOCAB
+    and C is a multiple of 64 (bf16) or 32 (f32): see :func:`_check_embed`.
     """
     if not _build.on_cuda(tokens, kernel, bias):
         return embed_conv_plain(tokens, kernel, bias, apply_leaky)
@@ -144,7 +146,7 @@ def embed_conv_bases(bases: torch.Tensor, kernel: torch.Tensor, bias: torch.Tens
 
     On the card the kernel takes uint8 codes, as the nn pipeline sends them,
     and a table of V >= 257 rows (the tokens are [0, 256]); the table checks
-    are K5's.
+    are K5's (:func:`_check_bases`).
     """
     if not _build.on_cuda(bases, kernel, bias):
         return embed_conv_bases_plain(bases, kernel, bias, length, apply_leaky)
@@ -175,7 +177,7 @@ def _check_bases(bases: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, 
     _build.require(bases.is_contiguous(), "inputs must be contiguous")
     _build.require(length >= 0, "length must be >= 0")
     V, C = _check_embed(kernel, bias)
-    _build.require(V >= 257, "the 4-mer tokens need V >= 257")
+    _build.require(V >= N_TOKENS, f"the 4-mer tokens need V >= {N_TOKENS}")
     return V, C
 
 

@@ -61,27 +61,31 @@ def ablated_sources(source: str) -> dict[str, str]:
     return out
 
 
-def _build_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    root = _build.BUILD_DIR / "ablate_causal_conv"
+def build_variants(name: str, sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
+    """Each source text built as ``csrc/<name>.cu`` beside copies of the
+    shared headers (one nvcc each, all started together) and loaded with
+    the entry points of ``ops.conv._SIGNATURES[name]``."""
+    root = _build.BUILD_DIR / f"ablate_{name}"
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
-    for i, (name, text) in enumerate(sources.items()):
+    for i, (variant, text) in enumerate(sources.items()):
         d = root / str(i)
         d.mkdir(parents=True)
-        (d / "causal_conv.cu").write_text(text)
+        (d / f"{name}.cu").write_text(text)
         for header in _build.CSRC.glob("*.cuh"):
             shutil.copy(header, d)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "causal_conv.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / f"{name}.cu")]
+        procs[variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
     libs = {}
-    for name, (proc, d) in procs.items():
+    for variant, (proc, d) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {variant}:\n{log}")
         lib = ctypes.CDLL(str(d / "lib.so"))
-        lib.causal_conv_launch.argtypes = conv._SIGNATURES["causal_conv"]["causal_conv_launch"]
-        lib.causal_conv_launch.restype = ctypes.c_int
-        libs[name] = lib
+        for fn, argtypes in conv._SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[variant] = lib
     return libs
 
 
@@ -121,7 +125,7 @@ def main(B: int = 128, L: int = 6016, turns: int = 3) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this tool times kernels on the card")
     C = _build.TC_CHANNELS
-    libs = _build_all(ablated_sources((_build.CSRC / "causal_conv.cu").read_text()))
+    libs = build_variants("causal_conv", ablated_sources((_build.CSRC / "causal_conv.cu").read_text()))
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((B, L, C), generator=gen, device="cuda").bfloat16()
     w = (torch.randn((6, C, C), generator=gen, device="cuda") * 0.05).bfloat16()

@@ -23,9 +23,7 @@ measurement: it needs a card and raises without one.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import shutil
 import statistics
 import subprocess
 import sys
@@ -33,7 +31,7 @@ import sys
 import torch
 
 from genomad_torch.ops import _build, conv
-from genomad_torch.tools.ablate_causal_conv import _clocks, _ms
+from genomad_torch.tools.ablate_causal_conv import _clocks, _ms, build_variants
 
 # text in embed_conv.cu -> what each ablation puts in its place
 _LOADS = (("add_row(acc, *reinterpret_cast<const uint4*>(table + k * tap_bytes + offs[p + k]), k == 0);",
@@ -65,37 +63,13 @@ def ablated_sources(source: str) -> dict[str, str]:
     return out
 
 
-def _build_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    root = _build.BUILD_DIR / "ablate_embed_conv"
-    shutil.rmtree(root, ignore_errors=True)
-    procs = {}
-    for i, (name, text) in enumerate(sources.items()):
-        d = root / str(i)
-        d.mkdir(parents=True)
-        (d / "embed_conv.cu").write_text(text)
-        for header in _build.CSRC.glob("*.cuh"):
-            shutil.copy(header, d)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "embed_conv.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
-    libs = {}
-    for name, (proc, d) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(d / "lib.so"))
-        lib.embed_conv_launch.argtypes = conv._SIGNATURES["embed_conv"]["embed_conv_launch"]
-        lib.embed_conv_launch.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
 def measure(sources: dict[str, str], B: int = 128, L: int = 6016, turns: int = 3) -> dict:
     """Builds each source and times its kernel beside the others and the
     yardsticks, as the module's docstring says."""
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this tool times kernels on the card")
     C, V = _build.TC_CHANNELS, 257
-    libs = _build_all(sources)
+    libs = build_variants("embed_conv", sources)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bases = torch.randint(0, 4, (B, L + 3), generator=gen, device="cuda", dtype=torch.uint8)
     tokens = conv.tokens_from_bases(bases).contiguous()

@@ -5,8 +5,9 @@
 Counterpart of ``tools/profile_forward.py``: times each component of the
 full-width bf16 forward in isolation, by CUDA events, to locate the
 bottleneck: the full forward, tokenization, conv1 (K5 ``embed_conv`` on
-tokens), conv1 from the bases (K5 ``embed_conv_bases``, the tokenizer fused
-in, as the full forward runs it), conv2 + conv3 (K4 ``causal_conv``), the fused IGLOO kernel (K2
+tokens), conv1 from the bases (K5 ``embed_conv_bases``, the tokenizer
+fused in, as the full forward runs it), conv2 + conv3 (K4
+``causal_conv``), the fused IGLOO kernel (K2
 ``fused_reduce`` and the attention), the patch reduction alone (K3
 ``patch_reduce``), the value projection alone (``torch.matmul``) and the
 first head dense. Milliseconds per batch; synthetic weights from seed 0.
