@@ -32,9 +32,10 @@
 // order, so the result is bit-equal to it); the epilogue with the JAX
 // rounding points (bf16x2 in bf16); one 16-byte store (the 8 lanes write a
 // full 128-byte segment). The block has 1,024 threads: measured on the card,
-// 16 warps an SM kept too few stores in flight to stream the output (a body
-// that only stores took 0.077 ms where a fill of the same bytes takes
-// 0.062), and 32 warps took K5 from 0.105 to 0.084 ms (PERF.md, section 6).
+// 32 warps an SM took K5 from 0.105 to 0.084 ms against 16. What holds it
+// there is the store stream (a fill of the same 197 MB takes 0.062 ms)
+// behind each launch's copy of its table slices (26 MB from L2, 0.006-0.012
+// ms), not shared memory or ALU (PERF.md, section 6).
 //
 // The bases form (embed_conv_bases_launch) is the same body with the 4-mer
 // tokenizer of igloo's `_tokens_from_bases(_pad_bases(.))` fused into the
