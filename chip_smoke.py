@@ -63,6 +63,14 @@ only the full run, with no arguments, does.
               cold and steady seconds, k residues/s, pairs, K1 cells/s and
               the staged DB's device memory; and a 2,000-profile search on
               the card against the port's own CPU run.
+11. train   - the trainer (genomad_torch.train) at full width in f32 (TF32
+              off): 20 steps of make_train_step at B = 64 windows of 5,997
+              tokens, dropout 0.2, on a separable toy task (the loss must
+              fall by 20%; every leaf's step-1 gradient finite and not all
+              zero; ms per step, windows/s, peak memory); one step at B = 4,
+              dropout 0, on the card against the CPU; and
+              make_sharded_train_step in a one-rank NCCL group
+              (initialize_distributed) bit-equal to the unsharded step.
 
 Prints the kernel table as one JSON line ({"kernels": [...]}), the
 ``nvidia-smi`` name and power limit, and, last, the device line
@@ -1734,7 +1742,152 @@ def card_vs_cpu_phase(workdir: Path) -> dict:
     return summary
 
 
-PHASES = ("kernels", "sw", "main", "forward", "annotate", "end-to-end", "card-vs-cpu", "search")
+# ---------------------------------------------------------------------------
+# Phase 11: the trainer at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 64
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-3
+TRAIN_DROPOUT = 0.2
+TRAIN_CHECK_BATCH = 4
+# one step on the card against the same step on the CPU (f32, TF32 off):
+# the loss to a relative 1e-5, each leaf's gradient to 1e-4 of its max |g|
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+
+
+def toy_windows(rng, n: int, length: int):
+    """A separable toy task: window i has class i % 3 and draws its tokens
+    from the class's third of 1..256."""
+    labels = np.arange(n) % 3
+    lo = 1 + 85 * labels
+    tokens = (lo[:, None] + rng.integers(0, 85, size=(n, length))).astype(np.int32)
+    return tokens, labels.astype(np.int32)
+
+
+def _leaf_grads(state) -> dict:
+    return {f"{g}/{n}": p.grad.detach().clone() for g, sub in state.trainable.items() for n, p in sub.items()}
+
+
+def train_steps(raw, device, tokens, labels, steps: int, dropout: float, seed: int = SEED):
+    """``steps`` steps of make_train_step from ``raw`` on ``device``: the
+    losses, host ms per step (synchronised), step 1's gradients and the
+    final state."""
+    from genomad_torch import train
+    from genomad_torch.models import igloo
+
+    state = train.init_train_state(igloo.params_from_numpy(raw, torch.float32), train.make_optimizer(TRAIN_LR), device=device)
+    step = train.make_train_step(train.make_optimizer(TRAIN_LR), dropout_rate=dropout)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens_d, labels_d = torch.from_numpy(tokens).to(device), torch.from_numpy(labels).to(device)
+    losses, ms, grads = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens_d, labels_d, gen)
+        losses.append(float(loss))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads = _leaf_grads(state)
+    return losses, ms, grads, state
+
+
+def train_phase() -> dict:
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from genomad_torch import train
+    from genomad_torch.device import disable_tf32
+    from genomad_torch.models import igloo
+    from genomad_torch.parallel import mesh
+
+    disable_tf32()
+    raw = igloo.init_params(SEED)
+    rng = np.random.default_rng(SEED + 11)
+
+    # (a) full width, B = 64, dropout on: the loss falls; step 1's gradients
+    tokens, labels = toy_windows(rng, TRAIN_BATCH, igloo.WINDOW_TOKENS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, grads, _ = train_steps(raw, "cuda", tokens, labels, TRAIN_STEPS, TRAIN_DROPOUT)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    if bad:
+        raise AssertionError(f"step 1: gradients not finite or all zero for {bad}")
+    if not losses[-1] < 0.8 * losses[0]:
+        raise AssertionError(f"the loss did not fall by 20% in {TRAIN_STEPS} steps: {losses}")
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+
+    # (b) one step at B = 4, dropout 0: the card against the CPU
+    tokens4, labels4 = toy_windows(rng, TRAIN_CHECK_BATCH, igloo.WINDOW_TOKENS)
+    card_loss, _, card_grads, _ = train_steps(raw, "cuda", tokens4, labels4, 1, 0.0)
+    cpu_loss, _, cpu_grads, _ = train_steps(raw, "cpu", tokens4, labels4, 1, 0.0)
+    loss_rel = abs(card_loss[0] - cpu_loss[0]) / abs(cpu_loss[0])
+    grad_rel = {}
+    for key, ref in cpu_grads.items():
+        scale = float(ref.abs().max())
+        grad_rel[key] = float((card_grads[key].cpu() - ref).abs().max()) / max(scale, 1e-30)
+    worst = max(grad_rel, key=grad_rel.get)
+    if not loss_rel <= TRAIN_LOSS_RTOL or not grad_rel[worst] <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"card != CPU step: loss rel {loss_rel}, worst gradient {worst} rel {grad_rel[worst]}")
+
+    # (c) the data-parallel step in a one-rank NCCL group == the unsharded step, bit for bit
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    saved = {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        if not mesh.initialize_distributed() or dist.get_backend() != "nccl":
+            raise AssertionError("initialize_distributed did not join an NCCL group")
+        results = []
+        opt = train.make_optimizer(TRAIN_LR)
+        for step in (train.make_train_step(opt, TRAIN_DROPOUT), train.make_sharded_train_step(opt, dropout_rate=TRAIN_DROPOUT)):
+            state = train.init_train_state(igloo.params_from_numpy(raw, torch.float32), opt)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            state, loss = step(state, torch.from_numpy(tokens4).cuda(), torch.from_numpy(labels4).cuda(), gen)
+            results.append((loss, _leaf_grads(state), {k: p.detach() for k, p in _leaf_params(state).items()}))
+        (l0, g0, p0), (l1, g1, p1) = results
+        bit_equal(l1.reshape(1), l0.reshape(1), "sharded step loss")
+        for key in g0:
+            bit_equal(g1[key], g0[key], f"sharded step gradient {key}")
+            bit_equal(p1[key], p0[key], f"sharded step parameter {key}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    summary = {
+        "batch": TRAIN_BATCH,
+        "window_tokens": igloo.WINDOW_TOKENS,
+        "dtype": "float32 (TF32 off)",
+        "steps": TRAIN_STEPS,
+        "dropout": TRAIN_DROPOUT,
+        "lr": TRAIN_LR,
+        "loss_first_last": [losses[0], losses[-1]],
+        "first_step_ms": ms[0],
+        "ms_per_step_median_after_first": steady,
+        "windows_per_s": TRAIN_BATCH / steady * 1e3,
+        "peak_mem_gib": peak_gib,
+        "leaves_with_finite_nonzero_grad": len(grads),
+        "card_vs_cpu_b4": {"loss_rel": loss_rel, "worst_grad_rel_of_max": grad_rel[worst], "worst_leaf": worst},
+        "one_rank_nccl_step": "bit-equal to the unsharded step (loss, gradients, parameters)",
+    }
+    log("# train: " + json.dumps(summary))
+    return summary
+
+
+def _leaf_params(state) -> dict:
+    return {f"{g}/{n}": p for g, sub in state.trainable.items() for n, p in sub.items()}
+
+
+PHASES = ("kernels", "sw", "main", "forward", "annotate", "end-to-end", "card-vs-cpu", "search", "train")
 # what a phase reads from the phases before it: the kernel table (launches
 # per batch, the rows the later phases fill in) and annotate's DB directory
 REQUIRES = {
@@ -1806,6 +1959,7 @@ def main(argv: list[str] | None = None) -> int:
             "end-to-end": lambda: end_to_end_phase(results, tmp / "annotate", db),
             "card-vs-cpu": lambda: card_vs_cpu_phase(tmp / "card_cpu"),
             "search": real_db_phase,
+            "train": train_phase,
         }
         for name in phases:
             if failures:

@@ -232,3 +232,99 @@ class IglooClassifier(torch.nn.Module):
         (B, 3) float32 class probs: the JAX ``apply_bases``, with the 4-mer
         tokenizer fused into conv1's kernel and the trunk padded to L_PAD."""
         return self._trunk(conv.embed_conv_bases(bases.contiguous(), self.conv1.kernel, self.conv1.bias, L_PAD))
+
+
+# ---------------------------------------------------------------------------
+# Training-mode forward (dropout active): the JAX ``apply_train``
+# ---------------------------------------------------------------------------
+#
+# Plain differentiable PyTorch throughout, as JAX's apply_train leaves this
+# work to XLA: the K2/K4/K5 kernels have no backward, and their wrappers
+# refuse inputs that require a gradient.
+
+
+def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.leaky_relu(x, negative_slope=0.1)
+
+
+def _bn(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return x * p["scale"] + p["shift"]
+
+
+def _causal_embed_conv(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Width-K causal conv over one-hot tokens as JAX computes it: one
+    gather of the (V+1, K*C) table (last row the zero pad token), then the
+    K shifted block sums. out[:, t] = bias + sum_k kernel[k][tokens[:, t-K+1+k]]."""
+    k_size, vocab, channels = kernel.shape
+    length = tokens.shape[1]
+    table = torch.cat(
+        [kernel.transpose(0, 1).reshape(vocab, k_size * channels), kernel.new_zeros((1, k_size * channels))]
+    )
+    padded = torch.nn.functional.pad(tokens.long(), (k_size - 1, 0), value=vocab)
+    gathered = table[padded]  # (B, L+K-1, K*C)
+    out = sum(gathered[:, k : k + length, k * channels : (k + 1) * channels] for k in range(k_size))
+    return out + bias
+
+
+def _causal_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Causal 1-D conv (B, L, C_in) -> (B, L, C_out): the six shifted
+    matmuls of ``conv.causal_conv_plain``, without its epilogue."""
+    k_size = kernel.shape[0]
+    length = x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, k_size - 1, 0))
+    out = sum(torch.matmul(xp[:, k : k + length], kernel[k]) for k in range(k_size))
+    return out + bias
+
+
+def _igloo_kernel(y: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The gather branch of JAX's ``_igloo_kernel``: (B, L, C) -> (B, C)."""
+    pooled_len = min(y.shape[1], WINDOW_TOKENS) // POOL
+    gathered = y[:, p["patches"].long()]  # (B, P, S, C)
+    mpi = torch.einsum("bpsc,psc->bp", gathered.float(), p["w_patch"].float())
+    y_proj = torch.matmul(y.float(), p["w_v"].float()).to(y.dtype)
+    full_windows = y.shape[1] // POOL
+    pooled = y_proj[:, : full_windows * POOL].reshape(y.shape[0], full_windows, POOL, -1).amax(dim=2)[:, :pooled_len]
+    mpi = mpi.to(y.dtype) + p["w_bias"]
+    alpha = torch.softmax(torch.matmul(mpi.float(), p["w_qk"].float()), dim=-1).to(y.dtype)
+    return torch.einsum("bl,blc->bc", alpha.float(), pooled.float()).to(y.dtype)
+
+
+def dropout_masks(generator: torch.Generator, batch: int, dropout_rate: float, channels: int = CHANNELS, hidden: int = ENC_DIM):
+    """The four keep masks of :func:`apply_train`, drawn from ``generator``
+    in JAX's order (k1 to k4): SpatialDropout1D (batch, 1, channels) after
+    conv1, conv2 and conv3, then the head's (batch, hidden). Each entry is
+    kept with probability 1 - dropout_rate. The masks live on the
+    generator's device."""
+    shapes = [(batch, 1, channels)] * 3 + [(batch, hidden)]
+    return [torch.rand(s, generator=generator, device=generator.device) >= dropout_rate for s in shapes]
+
+
+def apply_train(params: Params, tokens: torch.Tensor, generator: torch.Generator | None, dropout_rate: float = 0.2, masks=None) -> torch.Tensor:
+    """Forward pass with dropout active (SpatialDropout1D on the conv
+    stacks, plain Dropout on the head; reference igloo.py:49-53,
+    model.py:43): (B, L) int tokens -> (B, 3) float32 class probs.
+
+    ``params`` is the dict ``params_from_numpy`` returns (float leaves may
+    require grad). ``masks``: the four keep masks of :func:`dropout_masks`
+    for these rows; drawn from ``generator`` when not given and the rate
+    is above 0. At rate 0 nothing is drawn and nothing dropped."""
+    p = params
+    if dropout_rate and masks is None:
+        masks = dropout_masks(generator, tokens.shape[0], dropout_rate, p["conv2"]["kernel"].shape[2], p["head_dense"]["kernel"].shape[1])
+
+    def drop(x, i):
+        if not dropout_rate:
+            return x
+        keep = masks[i].to(x.device)
+        return torch.where(keep, x / (1 - dropout_rate), torch.zeros_like(x))
+
+    h1 = drop(_leaky_relu(_causal_embed_conv(tokens, p["conv1"]["kernel"], p["conv1"]["bias"])), 0)
+    a = _igloo_kernel(h1, p["igloo1"])
+    h2 = drop(_leaky_relu(_causal_conv(h1, p["conv2"]["kernel"], p["conv2"]["bias"])), 1)
+    h3 = drop(_leaky_relu(_causal_conv(h2, p["conv3"]["kernel"], p["conv3"]["bias"])), 2)
+    b = _igloo_kernel(h3, p["igloo2"])
+    feat = torch.cat([a, b], dim=-1)
+    enc = torch.relu(_bn(feat @ p["enc_dense"]["kernel"] + p["enc_dense"]["bias"], p["enc_bn"]))
+    hid = drop(torch.relu(_bn(enc @ p["head_dense"]["kernel"] + p["head_dense"]["bias"], p["head_bn"])), 3)
+    logits = (hid @ p["out_dense"]["kernel"] + p["out_dense"]["bias"]).float()
+    return torch.softmax(logits, dim=-1)

@@ -123,6 +123,20 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {device}")
 
 
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raises when grad mode is on and an input requires grad. The kernels
+    have no backward and write into ``torch.empty`` through ctypes, so
+    their outputs carry no ``grad_fn``: a training forward that reached one
+    would drop every gradient upstream of it without an error. Inference
+    never trips this (the model holds buffers; the nn pipeline runs under
+    ``inference_mode``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward; an input requires grad. Train "
+            "through the differentiable forward (genomad_torch.models.igloo.apply_train)."
+        )
+
+
 def require(cond: bool, message: str) -> None:
     if not cond:
         raise ValueError(message)

@@ -110,6 +110,7 @@ def embed_conv(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, a
     """
     if not _build.on_cuda(tokens, kernel, bias):
         return embed_conv_plain(tokens, kernel, bias, apply_leaky)
+    _build.refuse_grad("embed_conv", tokens, kernel, bias)
     _build.require(tokens.dim() == 2 and tokens.dtype == torch.int32, "tokens must be (B, L) int32")
     _build.require(tokens.is_contiguous(), "inputs must be contiguous")
     V, C = _check_embed(kernel, bias)
@@ -150,6 +151,7 @@ def embed_conv_bases(bases: torch.Tensor, kernel: torch.Tensor, bias: torch.Tens
     """
     if not _build.on_cuda(bases, kernel, bias):
         return embed_conv_bases_plain(bases, kernel, bias, length, apply_leaky)
+    _build.refuse_grad("embed_conv_bases", bases, kernel, bias)
     V, C = _check_bases(bases, kernel, bias, length)
     B, n = bases.shape
     out = torch.empty((B, length, C), dtype=kernel.dtype, device=bases.device)
@@ -224,6 +226,7 @@ def causal_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, apply
     """
     if not _build.on_cuda(x, kernel, bias):
         return causal_conv_plain(x, kernel, bias, apply_leaky)
+    _build.refuse_grad("causal_conv", x, kernel, bias)
     B, L, C = _check(x, kernel, bias)
     out = torch.empty_like(x)
     if out.numel() == 0:

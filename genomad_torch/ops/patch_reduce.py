@@ -103,6 +103,7 @@ def fused_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
     """
     if not _build.on_cuda(y, patches, w_patch, w_v):
         return fused_reduce_plain(y, patches, w_patch, w_v)
+    _build.refuse_grad("fused_reduce", y, w_patch, w_v)
     B, L, C, P, S = _check(y, patches, w_patch, w_v)
     _build.require(w_v.shape == (C, C), "w_v must be (C, C)")
     if y.dtype == torch.bfloat16:
@@ -140,6 +141,7 @@ def patch_reduce(y: torch.Tensor, patches: torch.Tensor, w_patch: torch.Tensor, 
     """
     if not _build.on_cuda(y, patches, w_patch):
         return patch_reduce_plain(y, patches, w_patch)
+    _build.refuse_grad("patch_reduce", y, w_patch)
     B, L, C, P, S = _check(y, patches, w_patch)
     if y.dtype == torch.bfloat16 and C == _build.TC_CHANNELS:
         _check_tc(y, P, S)

@@ -127,6 +127,7 @@ def sw_pairs(all_q, all_p, idx, ends=None, lengths=None):
     tensors = [all_q, all_p, idx] + ([ends] if ends is not None else []) + (list(lengths) if lengths is not None else [])
     if not _build.on_cuda(*tensors):
         return sw_pairs_plain(all_q, all_p, idx, ends, lengths)
+    _build.refuse_grad("sw_pairs", all_p)
     _build.require(all_q.dim() == 2 and all_q.dtype == torch.int32, "all_q must be (nq, Lq) int32")
     _build.require(all_p.dim() == 3 and all_p.shape[2] == N_COLS, "all_p must be (np, Lp, 21)")
     _build.require(all_p.dtype in _build.DTYPES, "all_p must be float32 or bfloat16")

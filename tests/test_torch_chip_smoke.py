@@ -21,6 +21,7 @@ def test_no_arguments_run_every_phase():
         (" search , card-vs-cpu ", ("card-vs-cpu", "search")),
         ("forward", ("kernels", "forward")),
         ("end-to-end", ("kernels", "sw", "annotate", "end-to-end")),
+        ("train", ("train",)),
     ],
 )
 def test_only_selects_the_named_phases_and_what_they_read(only, phases):
