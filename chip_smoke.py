@@ -7,7 +7,7 @@
 Phases (any failure makes the script exit non-zero without the final line).
 ``--only PHASE[,PHASE]`` runs device and build, the named phases and those
 they read from (main and forward read the kernel table; end-to-end reads
-kernels, sw and annotate): the quick check of a kernel change. It exits 0
+kernels, sw and annotate; mesh reads annotate): the quick check of a kernel change. It exits 0
 when those phases pass and never prints the kernel table or the final line:
 only the full run, with no arguments, does.
 
@@ -56,14 +56,21 @@ only the full run, with no arguments, does.
               the planted contigs, K1 in annotate and find-proviruses, K5/K4/K2
               in both NN passes, the summary tables; where the time goes by
               module, K1 by stage, the CRF's T and seconds.
-9. card-vs-cpu - run_end_to_end on the card and with device="cpu" on a small
+9. mesh     - on annotate's DB and its first 1,000 proteins, search with
+              (1, 2) and (2, 4) meshes whose every cell is cuda:0 against
+              search without a mesh (targets, integer bitscores, taxids
+              equal, E-values within 1e-4), K1's launches by cell;
+              dense_best_hits with and without a mesh equal;
+              predict_windows on a (2, 1) mesh against none (within 1e-2).
+              One card checks the routing and the merge, not scaling.
+10. card-vs-cpu - run_end_to_end on the card and with device="cpu" on a small
               fixture: files byte-equal, NN-branch scores within 1e-2.
-10. search  - the marker search on an in-memory 227,897-profile integral DB
+11. search  - the marker search on an in-memory 227,897-profile integral DB
               (the real geNomad DB's profile count) with 500 mixed queries:
               cold and steady seconds, k residues/s, pairs, K1 cells/s and
               the staged DB's device memory; and a 2,000-profile search on
               the card against the port's own CPU run.
-11. train   - the trainer (genomad_torch.train) at full width in f32 (TF32
+12. train   - the trainer (genomad_torch.train) at full width in f32 (TF32
               off): 20 steps of make_train_step at B = 64 windows of 5,997
               tokens, dropout 0.2, on a separable toy task (the loss must
               fall by 20%; every leaf's step-1 gradient finite and not all
@@ -1205,7 +1212,7 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the marker search at the real DB's profile count
+# Phase 11: the marker search at the real DB's profile count
 # ---------------------------------------------------------------------------
 
 
@@ -1656,7 +1663,7 @@ def end_to_end_device_share(fasta: Path, out_dir: Path, db_dir: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: run_end_to_end on the card against device="cpu"
+# Phase 10: run_end_to_end on the card against device="cpu"
 # ---------------------------------------------------------------------------
 
 # the scores that pass through the bf16 NN branch agree to this bound (the
@@ -1743,7 +1750,106 @@ def card_vs_cpu_phase(workdir: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: the trainer at full width
+# Phase 9: the mesh (every cell on this card)
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = ((1, 2), (2, 4))
+N_MESH_QUERIES = 1000  # the first of annotate's proteins
+DENSE_QUERIES, DENSE_PROFILES = 64, 512
+
+
+def hits_equivalent(got: dict, want: dict, what: str) -> None:
+    """The JAX package's assert_hits_equivalent: the same queries, targets,
+    integer bitscores and taxids; E-values within a relative 1e-4."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: {len(got.keys() ^ want.keys())} queries differ")
+    for q, (wt, we, wb, wx) in want.items():
+        gt, ge, gb, gx = got[q]
+        if (gt, gb, gx) != (wt, wb, wx) or abs(ge - we) > 1e-4 * abs(we):
+            raise AssertionError(f"{what}: {q}: {got[q]} != {want[q]}")
+
+
+def mesh_phase(workdir: Path, db) -> dict:
+    """On one card every mesh cell is cuda:0: this checks the routing and
+    the merge, not scaling."""
+    from genomad_torch import sequence
+    from genomad_torch.models import igloo, weights
+    from genomad_torch.ops import nn_pipeline, sw
+    from genomad_torch.ops import protein_search as ps
+    from genomad_torch.ops.profiledb import N_AA
+    from genomad_torch.parallel import mesh as meshlib
+    from genomad_torch.parallel import sharded_search
+    from genomad_torch.paths import GenomadOutputs
+
+    records = list(sequence.read_fasta(GenomadOutputs("genome", workdir / "out").annotate_proteins_output))[:N_MESH_QUERIES]
+    names, seqs = [r.accession for r in records], [r.seq for r in records]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ps.search(names, seqs, db)
+    walls = {"none": time.perf_counter() - t0}
+    if not ref:
+        raise AssertionError("no hit without a mesh")
+    launches = {}
+    for shape in MESH_SHAPES:
+        mesh = meshlib.make_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+        before = sw.sw_pairs.launches
+        t0 = time.perf_counter()
+        got = ps.search(names, seqs, db, mesh=mesh)
+        torch.cuda.synchronize()
+        key = f"{shape[0]}x{shape[1]}"
+        walls[key] = time.perf_counter() - t0
+        hits_equivalent(got, ref, f"search on a {key} mesh")
+        per_cell = {f"{g},{d}": mesh.cell_launches.get((g, d), 0) for g, d in mesh.rank_cells}
+        if min(per_cell.values()) <= 0 or sum(per_cell.values()) != sw.sw_pairs.launches - before:
+            raise AssertionError(f"K1 launches by cell on the {key} mesh: {per_cell}, {sw.sw_pairs.launches - before} in all")
+        launches[key] = per_cell
+
+    # dense best hits: mutated consensus queries of the first profiles
+    rng = np.random.default_rng(SEED + 9)
+    ids = np.arange(DENSE_PROFILES)
+    lp = int(db.lengths[ids].max())
+    profiles = np.zeros((len(ids), lp, N_AA), np.float32)
+    for i in ids:
+        prof = db.profile(int(i))
+        profiles[i, : len(prof)] = prof
+    queries = np.full((DENSE_QUERIES, lp), 20, np.int32)
+    for qi, target in enumerate(rng.choice(ids, DENSE_QUERIES, replace=False)):
+        cons = db.consensus(int(target)).copy()
+        pos = rng.choice(len(cons), len(cons) // 10, replace=False)
+        cons[pos] = rng.integers(0, N_AA, len(pos))
+        queries[qi, : len(cons)] = cons
+    best, score = sharded_search.dense_best_hits(queries, profiles)
+    for shape in MESH_SHAPES:
+        mesh = meshlib.make_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+        b, sc = sharded_search.dense_best_hits(queries, profiles, mesh=mesh)
+        if not (np.array_equal(b, best) and np.array_equal(sc, score)):
+            raise AssertionError(f"dense_best_hits on a {shape} mesh != without a mesh")
+
+    # predict_windows over a (2, 1) mesh against none
+    model = igloo.IglooClassifier(weights.load_params(), device="cuda")
+    bases = random_bases(rng, 3 * BATCH + 17)
+    plain = nn_pipeline.predict_windows(model, bases, BATCH)
+    on_mesh = nn_pipeline.predict_windows(model, bases, BATCH, mesh=meshlib.make_mesh(2, 1, devices=["cuda:0"] * 2))
+    nn_err = float(np.abs(on_mesh - plain).max())
+    if not nn_err <= NN_ATOL:
+        raise AssertionError(f"predict_windows on a (2, 1) mesh differs by {nn_err}")
+
+    summary = {
+        "queries": len(names),
+        "db_profiles": db.n_profiles,
+        "hits": len(ref),
+        "search_wall_s": walls,
+        "k1_launches_by_cell": launches,
+        "dense_best_hits": {"queries": DENSE_QUERIES, "profiles": DENSE_PROFILES, "equal": True},
+        "predict_windows_2x1_max_abs_diff": nn_err,
+        "note": "every cell is cuda:0: routing and merging, not scaling",
+    }
+    log("# mesh: " + json.dumps(summary))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the trainer at full width
 # ---------------------------------------------------------------------------
 
 TRAIN_BATCH = 64
@@ -1887,13 +1993,14 @@ def _leaf_params(state) -> dict:
     return {f"{g}/{n}": p for g, sub in state.trainable.items() for n, p in sub.items()}
 
 
-PHASES = ("kernels", "sw", "main", "forward", "annotate", "end-to-end", "card-vs-cpu", "search", "train")
+PHASES = ("kernels", "sw", "main", "forward", "annotate", "end-to-end", "mesh", "card-vs-cpu", "search", "train")
 # what a phase reads from the phases before it: the kernel table (launches
 # per batch, the rows the later phases fill in) and annotate's DB directory
 REQUIRES = {
     "main": ("kernels",),
     "forward": ("kernels",),
     "end-to-end": ("kernels", "sw", "annotate"),
+    "mesh": ("annotate",),  # annotate's DB and proteins
 }
 
 
@@ -1957,6 +2064,7 @@ def main(argv: list[str] | None = None) -> int:
             "annotate": lambda: annotate_phase(results, tmp / "annotate", db),
             # on annotate's DB directory
             "end-to-end": lambda: end_to_end_phase(results, tmp / "annotate", db),
+            "mesh": lambda: mesh_phase(tmp / "annotate", db),
             "card-vs-cpu": lambda: card_vs_cpu_phase(tmp / "card_cpu"),
             "search": real_db_phase,
             "train": train_phase,
@@ -1965,7 +2073,7 @@ def main(argv: list[str] | None = None) -> int:
             if failures:
                 break
             try:
-                if name in ("sw", "annotate") and db is None:
+                if name in ("sw", "annotate", "mesh") and db is None:
                     t0 = time.perf_counter()
                     db = bench_db(SW_DB_PROFILES)
                     log(f"# {SW_DB_PROFILES}-profile integral DB built in {time.perf_counter() - t0:.1f} s")

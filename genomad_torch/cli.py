@@ -6,7 +6,10 @@ download-database, the 7 pipeline modules, and end-to-end. Defaults cited
 per command; the --conservative/--relaxed presets reject combination with
 individual filter flags and inject the preset values (cli.py:250-318).
 Every command that computes runs on the card (``run_end_to_end`` and the
-modules take ``device``; None is the card and raises without one).
+modules take ``device``; None is the card and raises without one). Under
+torchrun the group callback joins the process group first
+(``parallel.mesh.initialize_distributed``), so that the marker search's
+default mesh spans every rank.
 """
 
 from __future__ import annotations
@@ -86,6 +89,15 @@ def common_options(fn):
 @click.version_option(version=genomad_torch.__version__, prog_name="genomad-torch")
 def cli():
     """genomad-torch: identification of mobile genetic elements on NVIDIA GPUs."""
+    # Multi-process runs (torchrun's WORLD_SIZE): join the process group so
+    # every module's default mesh spans all ranks. A no-op otherwise; the
+    # deferred import keeps CLI start-up free of torch.distributed.
+    import os
+
+    if "WORLD_SIZE" in os.environ:
+        from genomad_torch.parallel import mesh as meshlib
+
+        meshlib.initialize_distributed()
 
 
 @cli.command(context_settings=CONTEXT_SETTINGS)
@@ -284,13 +296,16 @@ def run_end_to_end(
     single_window=False,
     batch_size=128,
     device=None,
+    mesh=None,
     **filters,
 ):
     """Programmatic end-to-end pipeline (importable; the CLI wraps this).
 
     ``device``: where every module computes (None = the card; raises
     without one before anything is written; ``"cpu"`` runs the plain
-    PyTorch versions of the kernels)."""
+    PyTorch versions of the kernels). ``mesh``: a ``parallel.mesh.Mesh``
+    for the marker and integrase searches and both NN passes, as in the
+    JAX package; None leaves each module on ``device``."""
     from genomad_torch.modules import (
         aggregated_classification as agg_mod,
         annotate as annotate_mod,
@@ -311,7 +326,7 @@ def run_end_to_end(
             input, output, database, restart=restart, threads=threads,
             verbose=verbose, lenient_taxonomy=lenient_taxonomy,
             full_ictv_lineage=full_ictv_lineage, sensitivity=sensitivity,
-            splits=splits, cleanup=cleanup, device=device,
+            splits=splits, cleanup=cleanup, device=device, mesh=mesh,
         )
 
     if disable_nn_classification:
@@ -332,7 +347,7 @@ def run_end_to_end(
             nn_mod.main(
                 input, output, single_window=single_window,
                 batch_size=batch_size, restart=restart, threads=threads,
-                verbose=verbose, cleanup=False, device=device,
+                verbose=verbose, cleanup=False, device=device, mesh=mesh,
                 skip_proviruses=True,
             )
             fut.result()
@@ -343,7 +358,7 @@ def run_end_to_end(
             skip_trna_identification=skip_trna_identification,
             threads=threads, verbose=verbose,
             lenient_taxonomy=lenient_taxonomy,
-            full_ictv_lineage=full_ictv_lineage, device=device,
+            full_ictv_lineage=full_ictv_lineage, device=device, mesh=mesh,
         )
     marker_mod.main(input, output, database, restart=restart, threads=threads, verbose=verbose, device=device)
     if not disable_nn_classification:
@@ -352,7 +367,7 @@ def run_end_to_end(
         nn_mod.main(
             input, output, single_window=single_window, batch_size=batch_size,
             restart=False, threads=threads, verbose=verbose,
-            cleanup=cleanup, device=device,
+            cleanup=cleanup, device=device, mesh=mesh,
         )
         agg_mod.main(input, output, restart=restart, verbose=verbose)
     if enable_score_calibration:

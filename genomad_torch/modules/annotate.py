@@ -6,8 +6,10 @@ FASTA, searches the predicted proteins against the marker-profile DB on the
 GPU (genomad_torch.ops.protein_search, kernel K1), joins gene metadata x
 search hits x marker annotations into the 20-column <prefix>_genes.tsv, and
 writes the per-contig taxonomy table. The output files are byte-for-byte
-the JAX module's. The JAX module's device mesh is replaced by ``device``
-(None = cuda; raises without a card, before anything is written).
+the JAX module's. ``device`` is where the search runs (None = cuda; raises
+without a card, before anything is written); ``mesh``, as in the JAX
+module, runs it over a (data, db) mesh, and on the card a balanced mesh is
+made when more than one card is visible (``default_search_mesh``).
 """
 
 from __future__ import annotations
@@ -15,16 +17,40 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
+import torch
+
 from genomad_torch import database, sequence, taxonomy, utils
 from genomad_torch.device import resolve_device
 from genomad_torch.ops import gene_calling, protein_search
 from genomad_torch.paths import GenomadOutputs
 
 
-def run_search(proteins_path, output_path, db, use_minimal_db=False, use_integrase_db=False, sensitivity=4.2, evalue=1e-3, device=None, threads=None):
+def default_search_mesh():
+    """A balanced (data, db) mesh when more than one card is visible (the
+    ranks of a joined process group, else this process's cards), else
+    None. The profile DB shards over 'db' (the native replacement for the
+    reference's serial ``--splits`` chunking, genomad/mmseqs2.py:83-95) and
+    the query pairs over both axes."""
+    import torch.distributed as dist
+
+    from genomad_torch.parallel import mesh as meshlib
+
+    if dist.is_available() and dist.is_initialized():
+        n = dist.get_world_size()
+    else:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n <= 1:
+        return None
+    n_data, n_db = meshlib.balanced_factorization(n)
+    return meshlib.make_mesh(n_data=n_data, n_db=n_db)
+
+
+def run_search(proteins_path, output_path, db, use_minimal_db=False, use_integrase_db=False, sensitivity=4.2, evalue=1e-3, device=None, threads=None, mesh=None):
     """Search a protein FASTA against the packed profile DB on ``device``
     and write the best-hit TSV (columns: qheader, target, evalue, bits[,
-    taxid] — the convertalis contract, genomad/mmseqs2.py:159-174)."""
+    taxid] — the convertalis contract, genomad/mmseqs2.py:159-174). With a
+    mesh of several cells (or the default one when ``device`` is a card
+    and several are visible) the search runs over it."""
     profile_db = db.get_profile_db(use_minimal_db=use_minimal_db, use_integrase_db=use_integrase_db)
     include_taxid = not use_integrase_db
     names, seqs, headers = [], [], {}
@@ -32,9 +58,11 @@ def run_search(proteins_path, output_path, db, use_minimal_db=False, use_integra
         names.append(seq.accession)
         headers[seq.accession] = seq.header
         seqs.append(seq.seq)
+    if mesh is None and torch.device(device or "cuda").type == "cuda":
+        mesh = default_search_mesh()
     hits = protein_search.search(
         names, seqs, profile_db, sensitivity=sensitivity,
-        evalue_threshold=evalue, device=device, n_threads=threads,
+        evalue_threshold=evalue, device=device, mesh=mesh, n_threads=threads,
     )
     with open(output_path, "w") as fout:
         for name in names:
@@ -105,6 +133,7 @@ def main(
     splits=0,
     cleanup=False,
     device=None,
+    mesh=None,
 ):
     device = resolve_device(device)
     input_path, output_path = Path(input_path), Path(output_path)
@@ -187,6 +216,7 @@ def main(
                 evalue=evalue,
                 device=device,
                 threads=threads,
+                mesh=mesh,
             )
         console.log(
             f"Proteins annotated using the geNomad database (v{database_obj.version}) "

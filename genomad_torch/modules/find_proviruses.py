@@ -21,8 +21,9 @@ path and kernel K1 (forward and reverse) on ``device``. The CRF runs on
 
 Port of ``genomad_tpu/modules/find_proviruses.py``: the gene tables,
 island, edge and acceptance logic and every output file are the JAX
-module's; its device mesh is replaced by ``device`` (None = the card;
-raises without one, before anything is written).
+module's. Everything runs on ``device`` (None = the card; raises without
+one, before anything is written); ``mesh`` goes to the integrase search, as
+in the JAX module.
 """
 
 from __future__ import annotations
@@ -306,6 +307,7 @@ def main(
     sensitivity=8.2,
     evalue=1e-3,
     device=None,
+    mesh=None,
 ):
     device = resolve_device(device)
     input_path, output_path = Path(input_path), Path(output_path)
@@ -434,6 +436,7 @@ def main(
             evalue=evalue,
             device=device,
             threads=threads,
+            mesh=mesh,
         )
         console.log(f"Integrases written to {outputs.find_proviruses_mmseqs2_output.name}.")
 

@@ -33,7 +33,7 @@ def _write_scores_tsv(path: Path, names, predictions) -> None:
             fout.write(f"{name}\t{formatted}\n")
 
 
-def _classify_fasta(fasta_path, cache_dir, cache_npz, id_key, single_window, batch_size, device, console, skip):
+def _classify_fasta(fasta_path, cache_dir, cache_npz, id_key, single_window, batch_size, device, mesh, console, skip):
     """Encode (or load cached) windows, run the model, merge per contig."""
     if skip and cache_npz.exists():
         console.log(f"{cache_npz.name} was found. Skipping sequence encoding.")
@@ -74,10 +74,10 @@ def _classify_fasta(fasta_path, cache_dir, cache_npz, id_key, single_window, bat
                     bar.update(task, completed=done, total=total)
 
                 window_preds = nn_pipeline.predict_windows(
-                    model, bases, batch_size, progress=progress
+                    model, bases, batch_size, progress=progress, mesh=mesh
                 )
         else:
-            window_preds = nn_pipeline.predict_windows(model, bases, batch_size)
+            window_preds = nn_pipeline.predict_windows(model, bases, batch_size, mesh=mesh)
     predictions = nn_pipeline.segment_mean(window_preds, ids, len(names))
     return names, predictions
 
@@ -93,6 +93,7 @@ def main(
     cleanup=False,
     skip_proviruses=False,
     device=None,
+    mesh=None,
 ):
     """``skip_proviruses``: classify contig windows only — used by the
     end-to-end stage overlap, where this module runs
@@ -102,7 +103,8 @@ def main(
     second call recomputes them from the fresh provirus FASTA.
 
     ``device``: where the model runs; ``None`` is the card (raises when CUDA
-    is absent), ``"cpu"`` runs the plain PyTorch path."""
+    is absent), ``"cpu"`` runs the plain PyTorch path. ``mesh``: the
+    windows split over its ``data`` cells (``nn_pipeline.predict_windows``)."""
     device = resolve_device(device)
     input_path, output_path = Path(input_path), Path(output_path)
     output_path.mkdir(exist_ok=True)
@@ -194,6 +196,7 @@ def main(
             single_window,
             batch_size,
             device,
+            mesh,
             console,
             skip,
         )
@@ -226,6 +229,7 @@ def main(
                 single_window,
                 batch_size,
                 device,
+                mesh,
                 console,
                 skip,
             )

@@ -12,7 +12,9 @@ the reference NN module (genomad/modules/nn_classification.py:54-100,
   * per-window class probabilities are averaged per contig (segment mean).
 
 Batches go to the card as uint8 codes from pinned host memory and the
-results stay on the card until the last batch is done; there is no mesh.
+results stay on the card until the last batch is done. With a mesh, each
+batch's rows split over the ``data`` cells, each on its own replica of the
+model.
 """
 
 from __future__ import annotations
@@ -20,11 +22,14 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Callable
 
+import copy
+
 import numpy as np
 import torch
 
 from genomad_torch import sequence
 from genomad_torch.models import igloo
+from genomad_torch.parallel import mesh as meshlib
 
 WINDOW_LENGTH = 6_000
 MIN_WINDOW_LENGTH = 2_500
@@ -65,17 +70,21 @@ def predict_windows(
     windows: np.ndarray,
     batch_size: int = 128,
     progress: Callable[[int, int], None] | None = None,
+    mesh=None,
 ) -> np.ndarray:
     """Run the window classifier over all windows, ``batch_size`` at a time.
 
     ``windows`` is the (N, 6000) base-code matrix. Each batch is copied to
     the model's device as uint8 (from pinned memory when that is the card);
     the last batch is padded with all-N windows to the full batch size.
-    Returns (N, 3) float32 probabilities on the host.
+    Returns (N, 3) float32 probabilities on the host. ``mesh``: see
+    :func:`_predict_on_mesh`.
     """
     n = windows.shape[0]
     if n == 0:
         return np.zeros((0, igloo.N_CLASSES), dtype=np.float32)
+    if mesh is not None:
+        return _predict_on_mesh(model, windows, batch_size, progress, mesh)
     host = torch.from_numpy(np.ascontiguousarray(windows, dtype=np.uint8))
     if model.device.type == "cuda":
         host = host.pin_memory()
@@ -92,6 +101,47 @@ def predict_windows(
             if progress is not None:
                 progress(i + 1, n_batches)
         return torch.cat(outputs)[:n].cpu().numpy()
+
+
+def _predict_on_mesh(model, windows, batch_size, progress, mesh) -> np.ndarray:
+    """:func:`predict_windows` over the ``data`` axis of a mesh (JAX: the
+    batch sharded over 'data', replicated over 'db'): the batch size padded
+    to a multiple of n_data, each batch's rows cut into n_data contiguous
+    blocks, block g run on cell (g, 0)'s device by this rank when it owns
+    that cell, with one replica of the model per distinct device, built
+    once. ``Mesh.gather`` gives every rank all the rows."""
+    n_data = mesh.shape["data"]
+    batch_size = meshlib.pad_to_multiple(batch_size, n_data)
+    per_cell = batch_size // n_data
+    cells = [g for g in range(n_data) if (g, 0) in mesh.rank_cells]
+    replicas = {}
+    for g in cells:
+        device = mesh.devices[g, 0]
+        if device in replicas:
+            continue
+        if device == meshlib.canonical_device(model.device):
+            replicas[device] = model
+        else:
+            replicas[device] = copy.deepcopy(model).to(device)
+            replicas[device].device = device
+    n = windows.shape[0]
+    n_batches = -(-n // batch_size)
+    padded = np.full((n_batches * batch_size, windows.shape[1]), igloo.N_CODE, np.uint8)
+    padded[:n] = windows
+    host = torch.from_numpy(padded)
+    outputs = []
+    with torch.inference_mode():
+        for i in range(n_batches):
+            for g in cells:
+                start = i * batch_size + g * per_cell
+                device = mesh.devices[g, 0]
+                outputs.append((start, replicas[device].forward_bases(host[start : start + per_cell].to(device))))
+            if progress is not None:
+                progress(i + 1, n_batches)
+        out = np.zeros((len(padded), igloo.N_CLASSES), np.float32)
+        for start, probs in outputs:
+            out[start : start + per_cell] = probs.cpu().numpy()
+    return mesh.gather(out)[:n]
 
 
 def segment_mean(window_preds: np.ndarray, contig_ids: np.ndarray, n_contigs: int) -> np.ndarray:

@@ -75,3 +75,90 @@ def group_device(group=None) -> torch.device:
     if dist.get_backend(group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def canonical_device(device) -> torch.device:
+    """``torch.device`` with its index: a bare ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class Mesh:
+    """An (n_data, n_db) grid of ``torch.device``s, one per mesh cell.
+
+    Cells may repeat a device (every cell ``cpu`` in the tests, or
+    ``cuda:0`` on a one-card machine). With a process group (``group``
+    not None) the cells are split among its ranks in contiguous blocks in
+    row-major order, as JAX orders the devices of its processes; a rank
+    runs only its ``rank_cells`` and :meth:`gather` gives every rank the
+    whole result. ``cell_launches`` counts the K1 launches each cell made
+    in the searches over this mesh (on the card; the CPU makes none)."""
+
+    def __init__(self, devices, group=None):
+        self.devices = np.array(devices, dtype=object)
+        if self.devices.ndim != 2 or self.devices.size == 0:
+            raise ValueError(f"a mesh is a non-empty (n_data, n_db) grid of devices, got shape {self.devices.shape}")
+        for cell in np.ndindex(self.devices.shape):
+            self.devices[cell] = canonical_device(self.devices[cell])
+        self.group = group
+        world, rank = 1, 0
+        if group is not None:
+            import torch.distributed as dist
+
+            world, rank = dist.get_world_size(group), dist.get_rank(group)
+        if self.devices.size % world:
+            raise ValueError(f"{self.devices.size} mesh cells do not divide among {world} ranks")
+        per_rank = self.devices.size // world
+        n_db = self.devices.shape[1]
+        self.rank_cells = [divmod(c, n_db) for c in range(rank * per_rank, (rank + 1) * per_rank)]
+        self.cell_launches: dict = {}
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.devices.shape[0], "db": self.devices.shape[1]}
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    def gather(self, arr: np.ndarray) -> np.ndarray:
+        """Every rank's part of a result into the whole, on every rank: each
+        rank fills the rows of its own cells and leaves the rest 0, so the
+        sum over the ranks (one ``all_reduce``) is exact. Single-process
+        meshes return ``arr`` as it is."""
+        if self.group is None:
+            return arr
+        import torch.distributed as dist
+
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(group_device(self.group))
+        dist.all_reduce(t, group=self.group)
+        return t.cpu().numpy()
+
+
+def make_mesh(n_data: int | None = None, n_db: int = 1, devices=None) -> Mesh:
+    """A (data, db) mesh over ``devices`` (default: every visible card; in
+    a process group, one cell per rank, each on the rank's own device).
+    With a process group joined (``initialize_distributed``) the mesh
+    spans its ranks."""
+    import torch.distributed as dist
+
+    group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+    if devices is None:
+        if group is not None:
+            local = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend(group) == "nccl" else torch.device("cpu")
+            devices = [local] * dist.get_world_size(group)
+        else:
+            if not torch.cuda.is_available():
+                raise RuntimeError("CUDA is not available: pass the mesh's devices (e.g. ['cpu'] * n) explicitly.")
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if n_data is None:
+        n_data = len(devices) // n_db
+    if n_data < 1 or n_data * n_db > len(devices):
+        raise ValueError(f"a ({n_data}, {n_db}) mesh needs {n_data * n_db} devices, got {len(devices)}")
+    grid = np.empty((n_data, n_db), dtype=object)
+    for i, device in enumerate(devices[: n_data * n_db]):
+        grid[divmod(i, n_db)] = device
+    return Mesh(grid, group)

@@ -22,6 +22,7 @@ def test_no_arguments_run_every_phase():
         ("forward", ("kernels", "forward")),
         ("end-to-end", ("kernels", "sw", "annotate", "end-to-end")),
         ("train", ("train",)),
+        ("train,mesh", ("annotate", "mesh", "train")),
     ],
 )
 def test_only_selects_the_named_phases_and_what_they_read(only, phases):
