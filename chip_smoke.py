@@ -56,7 +56,8 @@ only the full run, with no arguments, does.
               the planted contigs, K1 in annotate and find-proviruses, K5/K4/K2
               in both NN passes, the summary tables; where the time goes by
               module, K1 by stage, the CRF's T and seconds.
-9. mesh     - on annotate's DB and its first 1,000 proteins, search with
+9. mesh     - on annotate's DB, its proteins and 500 queries of the search
+              phase's mix (60% planted), search with
               (1, 2) and (2, 4) meshes whose every cell is cuda:0 against
               search without a mesh (targets, integer bitscores, taxids
               equal, E-values within 1e-4), K1's launches by cell;
@@ -1754,7 +1755,9 @@ def card_vs_cpu_phase(workdir: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_SHAPES = ((1, 2), (2, 4))
-N_MESH_QUERIES = 1000  # the first of annotate's proteins
+# beside annotate's proteins (few of which hit), the search phase's mix of
+# planted and background queries, so that the hits compared are many
+N_MESH_EXTRA_QUERIES = 500
 DENSE_QUERIES, DENSE_PROFILES = 64, 512
 
 
@@ -1781,15 +1784,19 @@ def mesh_phase(workdir: Path, db) -> dict:
     from genomad_torch.parallel import sharded_search
     from genomad_torch.paths import GenomadOutputs
 
-    records = list(sequence.read_fasta(GenomadOutputs("genome", workdir / "out").annotate_proteins_output))[:N_MESH_QUERIES]
-    names, seqs = [r.accession for r in records], [r.seq for r in records]
+    records = list(sequence.read_fasta(GenomadOutputs("genome", workdir / "out").annotate_proteins_output))
+    extra_names, extra_seqs, _ = bench_queries(db, N_MESH_EXTRA_QUERIES, seed=SEED + 8)
+    names = [r.accession for r in records] + extra_names
+    seqs = [r.seq for r in records] + extra_seqs
+    db.kmer_index(1)  # built once per DB object; not in the walls below
     torch.cuda.synchronize()
+    before = sw.sw_pairs.launches
     t0 = time.perf_counter()
     ref = ps.search(names, seqs, db)
     walls = {"none": time.perf_counter() - t0}
     if not ref:
         raise AssertionError("no hit without a mesh")
-    launches = {}
+    launches = {"none": sw.sw_pairs.launches - before}
     for shape in MESH_SHAPES:
         mesh = meshlib.make_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
         before = sw.sw_pairs.launches
@@ -1835,7 +1842,7 @@ def mesh_phase(workdir: Path, db) -> dict:
         raise AssertionError(f"predict_windows on a (2, 1) mesh differs by {nn_err}")
 
     summary = {
-        "queries": len(names),
+        "queries": f"{len(records)} of annotate + {N_MESH_EXTRA_QUERIES} mixed",
         "db_profiles": db.n_profiles,
         "hits": len(ref),
         "search_wall_s": walls,

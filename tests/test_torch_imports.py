@@ -42,6 +42,14 @@ END_TO_END_MODULES = (
     "genomad_torch.tools.profile_forward",
 )
 
+# the modules of the last slice (the trainer and the mesh), each imported above
+TRAIN_AND_MESH_MODULES = (
+    "genomad_torch.train",
+    "genomad_torch.parallel",
+    "genomad_torch.parallel.mesh",
+    "genomad_torch.parallel.sharded_search",
+)
+
 
 def test_port_modules_import_neither_jax_nor_the_jax_package():
     out = subprocess.run(
@@ -49,9 +57,10 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    # every module of the three slices (nn-classification, annotate, end-to-end) was imported
-    assert len(names) >= 29 + len(END_TO_END_MODULES)
+    # every module of the slices (nn-classification, annotate, end-to-end, trainer and mesh) was imported
+    assert len(names) >= 29 + len(END_TO_END_MODULES) + len(TRAIN_AND_MESH_MODULES)
     assert set(END_TO_END_MODULES) <= set(names)
+    assert set(TRAIN_AND_MESH_MODULES) <= set(names)
 
 
 def test_no_import_of_jax_in_the_port_sources():

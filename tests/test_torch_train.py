@@ -315,3 +315,45 @@ def test_gradient_guard_is_never_tripped_by_inference():
     assert tensors and not any(t.requires_grad for t in tensors)
     assert not any(True for _ in model.parameters())
     _build.refuse_grad("inference", *tensors)
+
+
+# ---------------------------------------------------------------------------
+# What the JAX package does with its derived keys after training
+# ---------------------------------------------------------------------------
+
+
+def test_jax_fine_tuned_params_keep_the_prepare_time_plans():
+    """The JAX package's behaviour, recorded (ROADMAP queue 3), not a fault
+    of the port: ``merge_params`` carries ``igloo1_plan`` / ``igloo2_plan``
+    as ``prepare_params`` folded them, so after a step ``apply_bases`` (the
+    Pallas branch, stale ``w_tiles``) and ``apply`` (the gather branch, the
+    trained ``w_patch``) part; plans rebuilt from the trained weights
+    agree again. The port's prepared dict has no derived leaves.
+    ``-s`` prints the first output row of each."""
+    from genomad_tpu.ops import patch_reduce as jpatch
+
+    raw = jig.init_params(0)
+    prep = jig.prepare_params(raw, compute_dtype=jnp.float32)
+    rng = np.random.default_rng(0)
+    tokens = (1 + 85 * (np.arange(2) % 3)[:, None] + rng.integers(0, 85, (2, jig.WINDOW_TOKENS))).astype(np.int32)
+    labels = (np.arange(2) % 3).astype(np.int32)
+    opt = jtrain.make_optimizer(1e-2)
+    state = jtrain.init_train_state(prep, opt)
+    state, _ = jtrain.make_train_step(opt, donate=False)(state, jnp.asarray(tokens), jnp.asarray(labels), jax.random.PRNGKey(0))
+    merged = jtrain.merge_params(state.trainable, state.static)
+    for key in ("igloo1_plan", "igloo2_plan"):
+        np.testing.assert_array_equal(np.asarray(merged[key]["w_tiles"]), np.asarray(prep[key]["w_tiles"]))
+    bases = rng.integers(0, 4, (1, 6000)).astype(np.int32)
+    tok = jig._tokens_from_bases(jnp.asarray(bases))[:, : jig.WINDOW_TOKENS]
+    rows = {}
+    for name, params in (("before", prep), ("after", merged)):
+        rows[name] = (np.asarray(jig.apply(params, tok))[0], np.asarray(jig.apply_bases(params, jnp.asarray(bases)))[0])
+    fresh = dict(merged)
+    for g in ("igloo1", "igloo2"):
+        plan = jpatch.build_plan(np.asarray(merged[g]["patches"]), np.asarray(merged[g]["w_patch"], np.float32), jig.L_PAD)
+        fresh[g + "_plan"] = {"w_tiles": jnp.asarray(plan.w_tiles), "onehot": jnp.asarray(plan.onehot), "idx": jnp.asarray(plan.idx)}
+    rebuilt = np.asarray(jig.apply_bases(fresh, jnp.asarray(bases)))[0]
+    print("apply / apply_bases, row 0:", {k: (a.tolist(), b.tolist()) for k, (a, b) in rows.items()}, "rebuilt plans:", rebuilt.tolist())
+    np.testing.assert_allclose(rows["before"][1], rows["before"][0], atol=1e-6)
+    assert np.abs(rows["after"][1] - rows["after"][0]).max() > 0.05
+    np.testing.assert_allclose(rebuilt, rows["after"][0], atol=1e-6)
