@@ -1885,13 +1885,13 @@ def _leaf_grads(state) -> dict:
 
 def train_steps(raw, device, tokens, labels, steps: int, dropout: float, seed: int = SEED):
     """``steps`` steps of make_train_step from ``raw`` on ``device``: the
-    losses, host ms per step (synchronised), step 1's gradients and the
-    final state."""
+    losses, host ms per step (synchronised) and step 1's gradients."""
     from genomad_torch import train
     from genomad_torch.models import igloo
 
-    state = train.init_train_state(igloo.params_from_numpy(raw, torch.float32), train.make_optimizer(TRAIN_LR), device=device)
-    step = train.make_train_step(train.make_optimizer(TRAIN_LR), dropout_rate=dropout)
+    opt = train.make_optimizer(TRAIN_LR)
+    state = train.init_train_state(igloo.params_from_numpy(raw, torch.float32), opt, device=device)
+    step = train.make_train_step(opt, dropout_rate=dropout)
     gen = torch.Generator(device=device).manual_seed(seed)
     tokens_d, labels_d = torch.from_numpy(tokens).to(device), torch.from_numpy(labels).to(device)
     losses, ms, grads = [], [], None
@@ -1902,7 +1902,44 @@ def train_steps(raw, device, tokens, labels, steps: int, dropout: float, seed: i
         ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             grads = _leaf_grads(state)
-    return losses, ms, grads, state
+    return losses, ms, grads
+
+
+def train_step_device_share(raw, tokens, labels) -> dict:
+    """Device kernel time of one steady training step (torch.profiler,
+    after two warm steps) over its wall time, and the kernels that take
+    most of it. Diagnostics only: a failure is reported, not fatal."""
+    from genomad_torch import train
+    from genomad_torch.models import igloo
+
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        opt = train.make_optimizer(TRAIN_LR)
+        state = train.init_train_state(igloo.params_from_numpy(raw, torch.float32), opt)
+        step = train.make_train_step(opt, dropout_rate=TRAIN_DROPOUT)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        tokens_d, labels_d = torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda()
+        for _ in range(2):
+            state, _ = step(state, tokens_d, labels_d, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, tokens_d, labels_d, gen)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        device_us = {e.key: e.self_device_time_total for e in kernels if e.self_device_time_total > 0}
+        device_ms = sum(device_us.values()) / 1e3
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+        return {
+            "profiled_step_wall_ms": wall * 1e3,
+            "device_ms": device_ms,
+            "device_busy_share": device_ms / (wall * 1e3),
+            "device_ms_by_kernel": {k[:80]: v / 1e3 for k, v in top},
+        }
+    except Exception as exc:  # noqa: BLE001 - diagnostics must not hide the contract's result
+        return {"device_busy_share": f"not measured: {exc!r}"}
 
 
 def train_phase() -> dict:
@@ -1924,7 +1961,7 @@ def train_phase() -> dict:
     tokens, labels = toy_windows(rng, TRAIN_BATCH, igloo.WINDOW_TOKENS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, ms, grads, _ = train_steps(raw, "cuda", tokens, labels, TRAIN_STEPS, TRAIN_DROPOUT)
+    losses, ms, grads = train_steps(raw, "cuda", tokens, labels, TRAIN_STEPS, TRAIN_DROPOUT)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
     if bad:
@@ -1935,8 +1972,8 @@ def train_phase() -> dict:
 
     # (b) one step at B = 4, dropout 0: the card against the CPU
     tokens4, labels4 = toy_windows(rng, TRAIN_CHECK_BATCH, igloo.WINDOW_TOKENS)
-    card_loss, _, card_grads, _ = train_steps(raw, "cuda", tokens4, labels4, 1, 0.0)
-    cpu_loss, _, cpu_grads, _ = train_steps(raw, "cpu", tokens4, labels4, 1, 0.0)
+    card_loss, _, card_grads = train_steps(raw, "cuda", tokens4, labels4, 1, 0.0)
+    cpu_loss, _, cpu_grads = train_steps(raw, "cpu", tokens4, labels4, 1, 0.0)
     loss_rel = abs(card_loss[0] - cpu_loss[0]) / abs(cpu_loss[0])
     grad_rel = {}
     for key, ref in cpu_grads.items():
@@ -1961,7 +1998,8 @@ def train_phase() -> dict:
             state = train.init_train_state(igloo.params_from_numpy(raw, torch.float32), opt)
             gen = torch.Generator(device="cuda").manual_seed(SEED)
             state, loss = step(state, torch.from_numpy(tokens4).cuda(), torch.from_numpy(labels4).cuda(), gen)
-            results.append((loss, _leaf_grads(state), {k: p.detach() for k, p in _leaf_params(state).items()}))
+            values = {f"{g}/{n}": p.detach() for g, sub in state.trainable.items() for n, p in sub.items()}
+            results.append((loss, _leaf_grads(state), values))
         (l0, g0, p0), (l1, g1, p1) = results
         bit_equal(l1.reshape(1), l0.reshape(1), "sharded step loss")
         for key in g0:
@@ -1993,11 +2031,8 @@ def train_phase() -> dict:
         "one_rank_nccl_step": "bit-equal to the unsharded step (loss, gradients, parameters)",
     }
     log("# train: " + json.dumps(summary))
+    log("# where the time goes (train step, B = 64): " + json.dumps(train_step_device_share(raw, tokens, labels)))
     return summary
-
-
-def _leaf_params(state) -> dict:
-    return {f"{g}/{n}": p for g, sub in state.trainable.items() for n, p in sub.items()}
 
 
 PHASES = ("kernels", "sw", "main", "forward", "annotate", "end-to-end", "mesh", "card-vs-cpu", "search", "train")

@@ -289,12 +289,13 @@ def _igloo_kernel(y: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.einsum("bl,blc->bc", alpha.float(), pooled.float()).to(y.dtype)
 
 
-def dropout_masks(generator: torch.Generator, batch: int, dropout_rate: float, channels: int = CHANNELS, hidden: int = ENC_DIM):
-    """The four keep masks of :func:`apply_train`, drawn from ``generator``
-    in JAX's order (k1 to k4): SpatialDropout1D (batch, 1, channels) after
-    conv1, conv2 and conv3, then the head's (batch, hidden). Each entry is
-    kept with probability 1 - dropout_rate. The masks live on the
-    generator's device."""
+def dropout_masks(generator: torch.Generator, params: Params, batch: int, dropout_rate: float):
+    """The four keep masks of :func:`apply_train` for ``batch`` rows of
+    ``params``' widths, drawn from ``generator`` in JAX's order (k1 to k4):
+    SpatialDropout1D (batch, 1, channels) after conv1, conv2 and conv3, then
+    the head's (batch, hidden). Each entry is kept with probability
+    1 - dropout_rate. The masks live on the generator's device."""
+    channels, hidden = params["conv2"]["kernel"].shape[2], params["head_dense"]["kernel"].shape[1]
     shapes = [(batch, 1, channels)] * 3 + [(batch, hidden)]
     return [torch.rand(s, generator=generator, device=generator.device) >= dropout_rate for s in shapes]
 
@@ -310,7 +311,7 @@ def apply_train(params: Params, tokens: torch.Tensor, generator: torch.Generator
     is above 0. At rate 0 nothing is drawn and nothing dropped."""
     p = params
     if dropout_rate and masks is None:
-        masks = dropout_masks(generator, tokens.shape[0], dropout_rate, p["conv2"]["kernel"].shape[2], p["head_dense"]["kernel"].shape[1])
+        masks = dropout_masks(generator, p, tokens.shape[0], dropout_rate)
 
     def drop(x, i):
         if not dropout_rate:

@@ -132,8 +132,7 @@ def make_sharded_train_step(optimizer, group=None, dropout_rate: float = 0.2):
         rows = slice(rank * batch // world, (rank + 1) * batch // world)
         masks = None
         if dropout_rate:
-            channels, hidden = state.trainable["conv2"]["kernel"].shape[2], state.trainable["head_dense"]["kernel"].shape[1]
-            masks = [m[rows] for m in igloo.dropout_masks(generator, batch, dropout_rate, channels, hidden)]
+            masks = [m[rows] for m in igloo.dropout_masks(generator, state.trainable, batch, dropout_rate)]
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(state.trainable, state.static, tokens[rows], labels[rows], None, dropout_rate, masks=masks)
         loss.backward()

@@ -163,18 +163,18 @@ def test_training_reduces_loss():
 
 def test_dropout_masks_shape_scale_and_draw_order():
     raw, tokens, _ = _case(0, n=64)
+    params = tig.params_from_numpy(raw, torch.float32)
     rate = 0.25
-    masks = tig.dropout_masks(torch.Generator().manual_seed(7), 64, rate, 8, 12)
+    masks = tig.dropout_masks(torch.Generator().manual_seed(7), params, 64, rate)
     assert [tuple(m.shape) for m in masks] == [(64, 1, 8)] * 3 + [(64, 12)]
     assert all(m.dtype == torch.bool for m in masks)
     kept = torch.cat([m.reshape(-1) for m in masks]).float().mean()
     assert abs(float(kept) - (1 - rate)) < 0.05
     # drawn in order from the generator: the same seed gives the same masks
-    again = tig.dropout_masks(torch.Generator().manual_seed(7), 64, rate, 8, 12)
+    again = tig.dropout_masks(torch.Generator().manual_seed(7), params, 64, rate)
     assert all(torch.equal(a, b) for a, b in zip(masks, again))
     # SpatialDropout1D drops whole channels and scales the rest by 1/(1-r):
     # conv1's output under the masks equals the masked, scaled clean output
-    params = tig.params_from_numpy(raw, torch.float32)
     t = torch.from_numpy(tokens)
     h1 = tig._leaky_relu(tig._causal_embed_conv(t, params["conv1"]["kernel"], params["conv1"]["bias"]))
     dropped = torch.where(masks[0], h1 / (1 - rate), torch.zeros_like(h1))
