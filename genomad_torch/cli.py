@@ -9,7 +9,7 @@ Every command that computes runs on the card (``run_end_to_end`` and the
 modules take ``device``; None is the card and raises without one). Under
 torchrun the group callback joins the process group first
 (``parallel.mesh.initialize_distributed``), so that the marker search's
-default mesh spans every rank.
+default mesh spans every rank (one cell per rank).
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def common_options(fn):
 def cli():
     """genomad-torch: identification of mobile genetic elements on NVIDIA GPUs."""
     # Multi-process runs (torchrun's WORLD_SIZE): join the process group so
-    # every module's default mesh spans all ranks. A no-op otherwise; the
+    # the marker search's default mesh spans all ranks. A no-op otherwise; the
     # deferred import keeps CLI start-up free of torch.distributed.
     import os
 
@@ -305,7 +305,8 @@ def run_end_to_end(
     without one before anything is written; ``"cpu"`` runs the plain
     PyTorch versions of the kernels). ``mesh``: a ``parallel.mesh.Mesh``
     for the marker and integrase searches and both NN passes, as in the
-    JAX package; None leaves each module on ``device``."""
+    JAX package; None leaves each module on ``device``, and with neither
+    given the marker search takes ``annotate.default_search_mesh()``."""
     from genomad_torch.modules import (
         aggregated_classification as agg_mod,
         annotate as annotate_mod,
@@ -318,7 +319,7 @@ def run_end_to_end(
 
     from genomad_torch.device import resolve_device
 
-    device = resolve_device(device)
+    resolve_device(device)  # raises without a card, before anything is written
     filters = {**_FILTER_DEFAULTS, **filters}
 
     def _annotate():

@@ -8,16 +8,15 @@ search hits x marker annotations into the 20-column <prefix>_genes.tsv, and
 writes the per-contig taxonomy table. The output files are byte-for-byte
 the JAX module's. ``device`` is where the search runs (None = cuda; raises
 without a card, before anything is written); ``mesh``, as in the JAX
-module, runs it over a (data, db) mesh, and on the card a balanced mesh is
-made when more than one card is visible (``default_search_mesh``).
+module, runs it over a (data, db) mesh. When neither is given and a process
+group of several ranks is joined, the search runs over one cell per rank
+(``default_search_mesh``).
 """
 
 from __future__ import annotations
 
 import sys
 from pathlib import Path
-
-import torch
 
 from genomad_torch import database, sequence, taxonomy, utils
 from genomad_torch.device import resolve_device
@@ -26,22 +25,19 @@ from genomad_torch.paths import GenomadOutputs
 
 
 def default_search_mesh():
-    """A balanced (data, db) mesh when more than one card is visible (the
-    ranks of a joined process group, else this process's cards), else
-    None. The profile DB shards over 'db' (the native replacement for the
-    reference's serial ``--splits`` chunking, genomad/mmseqs2.py:83-95) and
-    the query pairs over both axes."""
+    """A balanced (data, db) mesh of one cell per rank when a process group
+    of more than one rank is joined, else None. The profile DB shards over
+    'db' (the native replacement for the reference's serial ``--splits``
+    chunking, genomad/mmseqs2.py:83-95) and the query pairs over both axes.
+    The ranks run their cells at once; one process walks its cells one
+    after another, so without a group the search stays on one card."""
     import torch.distributed as dist
 
     from genomad_torch.parallel import mesh as meshlib
 
-    if dist.is_available() and dist.is_initialized():
-        n = dist.get_world_size()
-    else:
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n <= 1:
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() <= 1:
         return None
-    n_data, n_db = meshlib.balanced_factorization(n)
+    n_data, n_db = meshlib.balanced_factorization(dist.get_world_size())
     return meshlib.make_mesh(n_data=n_data, n_db=n_db)
 
 
@@ -49,8 +45,8 @@ def run_search(proteins_path, output_path, db, use_minimal_db=False, use_integra
     """Search a protein FASTA against the packed profile DB on ``device``
     and write the best-hit TSV (columns: qheader, target, evalue, bits[,
     taxid] — the convertalis contract, genomad/mmseqs2.py:159-174). With a
-    mesh of several cells (or the default one when ``device`` is a card
-    and several are visible) the search runs over it."""
+    mesh of several cells the search runs over it; with neither ``device``
+    nor ``mesh`` given, over ``default_search_mesh()`` when that is one."""
     profile_db = db.get_profile_db(use_minimal_db=use_minimal_db, use_integrase_db=use_integrase_db)
     include_taxid = not use_integrase_db
     names, seqs, headers = [], [], {}
@@ -58,7 +54,7 @@ def run_search(proteins_path, output_path, db, use_minimal_db=False, use_integra
         names.append(seq.accession)
         headers[seq.accession] = seq.header
         seqs.append(seq.seq)
-    if mesh is None and torch.device(device or "cuda").type == "cuda":
+    if mesh is None and device is None:
         mesh = default_search_mesh()
     hits = protein_search.search(
         names, seqs, profile_db, sensitivity=sensitivity,
@@ -135,6 +131,8 @@ def main(
     device=None,
     mesh=None,
 ):
+    if mesh is None and device is None:
+        mesh = default_search_mesh()
     device = resolve_device(device)
     input_path, output_path = Path(input_path), Path(output_path)
     output_path.mkdir(exist_ok=True)

@@ -12,8 +12,8 @@ the reference NN module (genomad/modules/nn_classification.py:54-100,
   * per-window class probabilities are averaged per contig (segment mean).
 
 Batches go to the card as uint8 codes from pinned host memory and the
-results stay on the card until the last batch is done. With a mesh, each
-batch's rows split over the ``data`` cells, each on its own replica of the
+results stay on the card until the last batch is done. With a mesh, the
+windows split over the ``data`` cells, each on its own replica of the
 model.
 """
 
@@ -103,45 +103,44 @@ def predict_windows(
         return torch.cat(outputs)[:n].cpu().numpy()
 
 
+def _replica(model: igloo.IglooClassifier, device: torch.device, replicas: dict) -> igloo.IglooClassifier:
+    """``model`` on ``device``: itself there, else one copy per device,
+    kept in ``replicas``."""
+    if device == meshlib.canonical_device(model.device):
+        return model
+    if device not in replicas:
+        replicas[device] = copy.deepcopy(model).to(device)
+        replicas[device].device = device
+    return replicas[device]
+
+
 def _predict_on_mesh(model, windows, batch_size, progress, mesh) -> np.ndarray:
     """:func:`predict_windows` over the ``data`` axis of a mesh (JAX: the
-    batch sharded over 'data', replicated over 'db'): the batch size padded
-    to a multiple of n_data, each batch's rows cut into n_data contiguous
-    blocks, block g run on cell (g, 0)'s device by this rank when it owns
-    that cell, with one replica of the model per distinct device, built
-    once. ``Mesh.gather`` gives every rank all the rows."""
+    batch sharded over 'data', replicated over 'db'). The windows are cut
+    into n_data contiguous blocks; this rank runs the blocks of the cells
+    (g, 0) it owns, each through :func:`predict_windows` on that cell's
+    device at batch_size / n_data rows (the batch size padded to a
+    multiple of n_data), with one replica of the model per distinct
+    device. Windows are independent, so the rows equal the unsharded run's.
+    ``Mesh.gather`` gives every rank all the rows. A one-cell mesh is its
+    device."""
     n_data = mesh.shape["data"]
-    batch_size = meshlib.pad_to_multiple(batch_size, n_data)
-    per_cell = batch_size // n_data
+    per_cell = meshlib.pad_to_multiple(batch_size, n_data) // n_data
+    block = -(-windows.shape[0] // n_data)
     cells = [g for g in range(n_data) if (g, 0) in mesh.rank_cells]
-    replicas = {}
-    for g in cells:
-        device = mesh.devices[g, 0]
-        if device in replicas:
+    spans = [(g * block, min((g + 1) * block, windows.shape[0])) for g in cells]
+    total = sum(-(-max(b - a, 0) // per_cell) for a, b in spans)
+    replicas: dict = {}
+    out = np.zeros((windows.shape[0], igloo.N_CLASSES), np.float32)
+    done = 0
+    for g, (a, b) in zip(cells, spans):
+        if b <= a:
             continue
-        if device == meshlib.canonical_device(model.device):
-            replicas[device] = model
-        else:
-            replicas[device] = copy.deepcopy(model).to(device)
-            replicas[device].device = device
-    n = windows.shape[0]
-    n_batches = -(-n // batch_size)
-    padded = np.full((n_batches * batch_size, windows.shape[1]), igloo.N_CODE, np.uint8)
-    padded[:n] = windows
-    host = torch.from_numpy(padded)
-    outputs = []
-    with torch.inference_mode():
-        for i in range(n_batches):
-            for g in cells:
-                start = i * batch_size + g * per_cell
-                device = mesh.devices[g, 0]
-                outputs.append((start, replicas[device].forward_bases(host[start : start + per_cell].to(device))))
-            if progress is not None:
-                progress(i + 1, n_batches)
-        out = np.zeros((len(padded), igloo.N_CLASSES), np.float32)
-        for start, probs in outputs:
-            out[start : start + per_cell] = probs.cpu().numpy()
-    return mesh.gather(out)[:n]
+        cell_progress = None if progress is None else (lambda i, _n, done=done: progress(done + i, total))
+        replica = _replica(model, mesh.devices[g, 0], replicas)
+        out[a:b] = predict_windows(replica, windows[a:b], per_cell, cell_progress)
+        done += -(-(b - a) // per_cell)
+    return mesh.gather(out)
 
 
 def segment_mean(window_preds: np.ndarray, contig_ids: np.ndarray, n_contigs: int) -> np.ndarray:

@@ -95,13 +95,32 @@ def loss_fn(trainable: dict, static: dict, tokens, labels, generator, dropout_ra
     return -torch.mean(torch.gather(log_probs, 1, labels.long()[:, None]))
 
 
+def _optimizer_check(optimizer):
+    """A check that a state's optimizer is what the factory ``optimizer``
+    builds (its class and hyperparameters): ``init_train_state`` binds the
+    instance to the leaves, and a step made with another factory raises."""
+    probe = optimizer([torch.zeros(1, requires_grad=True)])
+
+    def check(state: TrainState) -> None:
+        if type(state.optimizer) is not type(probe) or state.optimizer.defaults != probe.defaults:
+            raise ValueError(
+                f"the state's optimizer ({type(state.optimizer).__name__}, {state.optimizer.defaults}) is not "
+                f"the one this step was made with ({type(probe).__name__}, {probe.defaults})"
+            )
+
+    return check
+
+
 def make_train_step(optimizer, dropout_rate: float = 0.2):
     """(state, tokens, labels, generator) -> (state, loss). ``optimizer`` is
-    the factory the state was built with; the step runs the instance bound
-    in ``state``. The leaves' ``.grad`` hold this step's gradients after it."""
-    del optimizer  # bound to the state by init_train_state
+    the factory the state was built with: the step runs the instance that
+    ``init_train_state`` bound in ``state``, and raises when that is not
+    what the factory builds. The leaves' ``.grad`` hold this step's
+    gradients after it."""
+    check = _optimizer_check(optimizer)
 
     def train_step(state: TrainState, tokens, labels, generator):
+        check(state)
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(state.trainable, state.static, tokens, labels, generator, dropout_rate)
         loss.backward()
@@ -118,13 +137,15 @@ def make_sharded_train_step(optimizer, group=None, dropout_rate: float = 0.2):
     draws the dropout masks for the global batch, takes its contiguous
     rows, and the gradients and loss are averaged with one ``all_reduce``
     before the optimizer step. So the step computes what the unsharded one
-    does, dropout included. Returns the global mean loss."""
-    del optimizer
+    does, dropout included. Returns the global mean loss. ``optimizer``:
+    as in :func:`make_train_step`."""
+    check = _optimizer_check(optimizer)
     import torch.distributed as dist
 
     from genomad_torch.parallel.mesh import group_device
 
     def train_step(state: TrainState, tokens, labels, generator):
+        check(state)
         world, rank = dist.get_world_size(group), dist.get_rank(group)
         batch = tokens.shape[0]
         if batch % world:

@@ -63,6 +63,26 @@ def test_default_meshes_need_a_card():
     assert tannotate.default_search_mesh() is None
 
 
+@pytest.mark.parametrize("device", [None, "cuda:1"])
+def test_run_search_builds_no_mesh_without_a_group(device, tmp_path, monkeypatch):
+    """Four visible cards and no process group: ``run_search`` builds no
+    mesh, and an explicit device reaches ``search`` as it was given."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    calls = []
+    monkeypatch.setattr(tps, "search", lambda *a, **kw: calls.append(kw) or {})
+
+    class _DB:
+        def get_profile_db(self, **_):
+            return None
+
+    proteins = tmp_path / "p.faa"
+    proteins.write_text(">g1\nMKV\n")
+    tannotate.run_search(proteins, tmp_path / "hits.tsv", _DB(), device=device)
+    assert tannotate.default_search_mesh() is None
+    assert [(kw["device"], kw["mesh"]) for kw in calls] == [(device, None)]
+
+
 @pytest.mark.parametrize("shape", MESH_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_search_on_mesh_equals_unsharded(shape):
     """tests/test_sharded_search.py::test_production_search_sharded_matches_host
@@ -181,10 +201,13 @@ def test_predict_windows_on_mesh_equals_no_mesh():
     ref = tpipe.predict_windows(model, bases, batch_size=4)
     progress = []
     got = tpipe.predict_windows(model, bases, batch_size=3, progress=lambda d, t: progress.append((d, t)), mesh=cpu_mesh(2, 1))
-    assert progress == [(1, 2), (2, 2)]  # batch 3 padded to 4 over 2 cells
+    # windows 0-3 and 4-6 over 2 cells, batch 3 padded to 4: 2 rows a batch
+    assert progress == [(1, 4), (2, 4), (3, 4), (4, 4)]
     assert got.shape == (7, 3) and got.dtype == np.float32
-    # windows are independent: the rows of each cell are those of one batch
+    # windows are independent: each row is the unsharded run's
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+    one_cell = tpipe.predict_windows(model, bases, batch_size=4, mesh=cpu_mesh(1, 1))
+    np.testing.assert_array_equal(one_cell, ref)
     assert model.device == torch.device("cpu")
 
 
@@ -219,6 +242,9 @@ def multihost_worker(out: str) -> None:
     n_data, n_db = tmesh.balanced_factorization(4)
     mesh = tmesh.make_mesh(n_data, n_db, devices=["cpu"] * 4)
     assert len(mesh.rank_cells) == 2
+    # the default: one cell per rank, each rank's own
+    default = tannotate.default_search_mesh()
+    assert default.shape == {"data": 1, "db": 2} and default.rank_cells == [(0, dist.get_rank())]
     db, names, seqs = _multihost_case()
     hits = tps.search(names, seqs, _twin(db), mesh=mesh)
     best, score = tsharded.dense_best_hits(*_dense_case(), mesh=mesh)

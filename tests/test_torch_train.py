@@ -5,6 +5,7 @@ every gradient against ``jax.value_and_grad``, AdamW against
 dropout masks, the data-parallel step in two gloo processes, and the
 kernels' gradient guard. float32, tiny widths (``make_tiny_params``)."""
 
+import functools
 import os
 import socket
 import subprocess
@@ -159,6 +160,22 @@ def test_training_reduces_loss():
         losses.append(float(loss))
     assert losses[-1] < losses[0] * 0.8, losses
     assert state.step == 30
+
+
+def test_train_step_checks_its_optimizer():
+    """The step runs the optimizer bound in the state, and raises when that
+    is not what the factory it was made with builds."""
+    rng = np.random.default_rng(0)
+    state = _state(make_tiny_params(rng), lr=1e-3)
+    tokens, labels = (torch.from_numpy(a) for a in toy_data(rng))
+    gen = torch.Generator().manual_seed(0)
+    state, _ = ttrain.make_train_step(ttrain.make_optimizer(1e-3))(state, tokens, labels, gen)
+    assert state.step == 1
+    with pytest.raises(ValueError, match="not the one this step was made with"):
+        ttrain.make_train_step(ttrain.make_optimizer(3e-3))(state, tokens, labels, gen)
+    with pytest.raises(ValueError, match="not the one this step was made with"):
+        ttrain.make_sharded_train_step(functools.partial(torch.optim.Adam, lr=1e-3))(state, tokens, labels, gen)
+    assert state.step == 1
 
 
 def test_dropout_masks_shape_scale_and_draw_order():
