@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # from the root of a checkout, one card
     python3 chip_smoke.py --only kernels   # device, build and the kernel phase only
+    python3 chip_smoke.py --sw-times TREE  # K1's timed cases with TREE's genomad_torch
 
 Phases (any failure makes the script exit non-zero without the final line).
 ``--only PHASE[,PHASE]`` runs device and build, the named phases and those
@@ -33,10 +34,15 @@ only the full run, with no arguments, does.
               256, 384 and 512, N = 4096 pairs from an integral
               20,000-profile DB staged in bf16), forward and reverse passes,
               with and without the real lengths, a float-PSSM f32 bucket, a
-              ragged N, one 1024 x 1024 pair, one 4096-bucket pair and the
-              edge cases of ``sw_edge_cases`` (f32 and bf16); times the
-              kernel by bucket and the plain version, beside the bound and
-              the cells/s. ``--only sw`` is the loop for K1 work.
+              ragged N, one 1024 x 1024 pair, one 4096-bucket pair, one
+              4,500-residue query of the 32768 query bucket and the edge
+              cases of ``sw_edge_cases`` (f32 and bf16); the long-profile
+              DB's cases (SW_LONG_CASES: the 768 and 1024 chunk widths and
+              the long body at 256 x 4096 and 4096 x 4096, bf16 and f32);
+              a search over 300 profiles, 40 of them long, card == CPU
+              (the long body's launches); times the kernel by case and the
+              plain version, beside the bound and the cells/s. ``--only
+              sw`` is the loop for K1 work.
 5. main     - nn-classification through its entry point on a synthetic
               metagenome of >= 24 Mbp (bf16, batch 128); checks the TSV, the
               kernels' launch counts (K5's bases form, never its token
@@ -126,6 +132,18 @@ SW_PAIRS = 4096
 # the 20,000-profile DB's buckets (lengths 60-400); 256 and 384 draw their
 # pairs first, so that they stay the pairs of the runs before 128 and 512 joined
 SW_BUCKETS = (256, 384, 128, 512)
+# K1's long-profile DB: integral and above 4,096 profiles, so it stages in
+# bf16 as the real DB does, with lengths 513-3,000 (the 768, 1024 and 4096
+# buckets); its cases (name, profile bucket, query bound, pairs): the upper
+# two chunk widths, ordinary proteins against long profiles (the common
+# real case) and long against long, the long body's
+SW_LONG_DB_PROFILES = 4_500
+SW_LONG_CASES = (
+    ("768x768", 768, 768, 4096), ("1024x1024", 1024, 1024, 4096),
+    ("256x4096", 4096, 256, 4096), ("4096x4096", 4096, 4096, 1024),
+)
+# the long-profile search, card against CPU: 300 profiles, 40 of them long
+SW_LONG_SEARCH = dict(n_short=260, n_long=40, long_len=(1025, 3000), queries=60)
 GENOME_MBP = 2.0
 N_SEARCH_QUERIES = 500
 N_HVH_CONTIGS = 3  # planted host-virus-host contigs in the end-to-end input
@@ -836,19 +854,22 @@ def write_db_dir(db_dir: Path, db) -> None:
 # ---------------------------------------------------------------------------
 
 
-def sw_bucket_pairs(db, Lq_bound: int, n_pairs: int, rng, dev):
+def sw_bucket_pairs(db, Lp_bound: int, n_pairs: int, rng, dev, Lq_bound: int | None = None):
     """Operands of one (query bucket, profile bucket) launch of the search:
-    the DB's staged profile bucket of length class ``Lq_bound``, and one
-    query row per pair in the query bucket of the same bound (a third of
-    them the pair's profile consensus with 10% substitutions and three
-    deletions, the rest background residues). Returns (all_q, all_p, idx,
-    (q_len, p_len))."""
+    the DB's staged profile bucket of length class ``Lp_bound``, and one
+    query row per pair in the query bucket of bound ``Lq_bound`` (default
+    ``Lp_bound``): a third of them the pair's profile consensus with 10%
+    substitutions and three deletions (a window of it, of a length in the
+    query bucket, where it is longer), the rest background residues.
+    Returns (all_q, all_p, idx, (q_len, p_len))."""
     from genomad_torch.ops import protein_search as ps
     from genomad_torch.ops.profiledb import N_AA
     from genomad_torch.ops.statistics import BACKGROUND_FREQS
 
-    b = ps._BOUNDS.index(Lq_bound)
-    lo = ps._BOUNDS[b - 1] if b else 0
+    Lq_bound = Lq_bound or Lp_bound
+    b = ps._BOUNDS.index(Lp_bound)
+    qb = ps._BOUNDS.index(Lq_bound)
+    lo = ps._BOUNDS[qb - 1] if qb else 0
     _, all_p, _, p_len = ps._get_staged_profiles(db, b, dev)
     ids = np.where(ps._bucket_bound(db.lengths) == b)[0]
     rows = rng.integers(0, len(ids), n_pairs)
@@ -857,6 +878,10 @@ def sw_bucket_pairs(db, Lq_bound: int, n_pairs: int, rng, dev):
     for k, r in enumerate(rows):
         if k % 3 == 0:
             seq = db.consensus(int(ids[r])).astype(np.int32)
+            if len(seq) > Lq_bound:
+                n = int(rng.integers(lo + 4, Lq_bound + 4))
+                start = int(rng.integers(0, len(seq) - n + 1))
+                seq = seq[start : start + n]
             pos = rng.choice(len(seq), len(seq) // 10, replace=False)
             seq[pos] = rng.integers(0, N_AA, len(pos))
             seq = np.delete(seq, rng.choice(len(seq), 3, replace=False))
@@ -913,7 +938,57 @@ def sw_bound(all_q, all_p, idx, q_len, p_len, cells):
 def k1_device_s(device_us: dict) -> float:
     """Seconds of K1 in a profile's device time by kernel name (every
     instantiation of both bodies of csrc/sw.cu)."""
-    return sum(v for k, v in device_us.items() if "::sw_chunk_kernel<" in k or "::sw_kernel<" in k) / 1e6
+    return sum(v for k, v in device_us.items() if "::sw_chunk_kernel<" in k or "::sw_slab_kernel<" in k) / 1e6
+
+
+def long_profile_db():
+    """K1's long-profile DB (SW_LONG_DB_PROFILES integral profiles of 513-3,000 columns)."""
+    from genomad_torch.ops.profiledb import ProfileDB
+    from genomad_torch.ops.statistics import BACKGROUND_FREQS
+
+    return ProfileDB.synthetic(
+        seed=5, n_profiles=SW_LONG_DB_PROFILES, min_len=513, max_len=3000,
+        residue_freqs=BACKGROUND_FREQS, integral=True,
+    )
+
+
+def long_search_case(n_short: int, n_long: int, long_len: tuple, queries: int, seed: int = SEED + 8):
+    """A DB of ``n_short`` profiles of bench_db's recipe (lengths 60-400)
+    and ``n_long`` of ``long_len`` columns, integral, and queries of
+    100-1,000 residues: a third 300-600-residue windows of a long profile's
+    consensus that end past its column 1,024 (10% substitutions), a third
+    mutated consensus sequences of short profiles, a third background.
+    Returns (db, names, seqs, {query name: planted profile name})."""
+    from genomad_torch.ops.profiledb import ALPHABET, N_AA, ProfileDB
+    from genomad_torch.ops.statistics import BACKGROUND_FREQS
+
+    rng = np.random.default_rng(seed)
+    kw = dict(residue_freqs=BACKGROUND_FREQS, integral=True)
+    short = ProfileDB.synthetic(seed=seed, n_profiles=n_short, min_len=60, max_len=400, **kw)
+    long = ProfileDB.synthetic(seed=seed + 1, n_profiles=n_long, min_len=long_len[0], max_len=long_len[1], **kw)
+    pssms = [short.profile(i) for i in range(n_short)] + [long.profile(i) for i in range(n_long)]
+    db = ProfileDB.from_profiles([f"GENOMAD.{i:06d}.XX" for i in range(len(pssms))], pssms)
+    names, seqs, planted = [], [], {}
+    for qi in range(queries):
+        if qi % 3 == 0:
+            t = n_short + int(rng.integers(0, n_long))
+            n = int(rng.integers(300, 601))
+            plen = int(db.lengths[t])
+            start = int(rng.integers(max(0, min(1055, plen) - n), plen - n + 1))
+            seq = db.consensus(t)[start : start + n].astype(np.int64)
+        elif qi % 3 == 1:
+            t = int(rng.choice(np.where(db.lengths[:n_short] >= 100)[0]))
+            seq = db.consensus(t).astype(np.int64)
+        else:
+            t = -1
+            seq = rng.choice(N_AA, int(rng.integers(100, 1001)), p=BACKGROUND_FREQS)
+        if t >= 0:
+            pos = rng.choice(len(seq), len(seq) // 10, replace=False)
+            seq[pos] = rng.integers(0, N_AA, len(pos))
+            planted[f"q_{qi}"] = str(db.names[t])
+        names.append(f"q_{qi}")
+        seqs.append("".join(ALPHABET[r] for r in seq))
+    return db, names, seqs, planted
 
 
 def sw_kernel_phase(results: dict, db) -> None:
@@ -924,35 +999,15 @@ def sw_kernel_phase(results: dict, db) -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 2)
     errs = []
-    timed = {}
+    timed = sw_chunk_cases(db, rng, dev)
     for L in SW_BUCKETS:
-        all_q, all_p, idx, (q_len, p_len) = sw_bucket_pairs(db, L, SW_PAIRS, rng, dev)
-        if all_p.dtype != torch.bfloat16:
-            raise AssertionError(f"the {SW_DB_PROFILES}-profile integral DB staged as {all_p.dtype}, not bf16")
-        lengths = (q_len, p_len)
-        fwd = sw.sw_pairs(all_q, all_p, idx, lengths=lengths)
-        ref = sw.sw_pairs_plain(all_q, all_p, idx)
-        errs.append(sw_equal(fwd, ref, f"forward {L}x{L} bf16 (real lengths)"))
-        errs.append(sw_equal(sw.sw_pairs(all_q, all_p, idx), ref, f"forward {L}x{L} bf16 (full bucket)"))
-        ends = torch.stack([fwd[1], fwd[2]])
-        rev = sw.sw_pairs(all_q, all_p, idx, ends=ends, lengths=lengths)
-        errs.append(sw_equal(rev, sw.sw_pairs_plain(all_q, all_p, idx, ends=ends), f"reverse {L}x{L} bf16"))
-        if not torch.equal(rev[0], fwd[0]):
-            raise AssertionError("K1: the reverse pass rescored an alignment differently (integral scores)")
-        ragged = idx[:, :777].contiguous()
-        errs.append(sw_equal(
-            sw.sw_pairs(all_q, all_p, ragged, ends=ends[:, :777].contiguous(), lengths=lengths),
-            sw.sw_pairs_plain(all_q, all_p, ragged, ends=ends[:, :777].contiguous()), f"ragged N=777 {L}",
-        ))
-        cells_f = sw_cells(q_len, p_len, idx)
-        cells_r = sw_cells(q_len, p_len, idx, ends)
-        timed[L] = dict(
-            args=(all_q, all_p, idx), lengths=lengths, ends=ends, cells_f=cells_f, cells_r=cells_r,
-            hits=int((fwd[0] > 0).sum()), best_max=float(fwd[0].max()),
-        )
-        torch.cuda.synchronize()
+        t = timed[L]
+        if t["args"][1].dtype != torch.bfloat16:
+            raise AssertionError(f"the {SW_DB_PROFILES}-profile integral DB staged as {t['args'][1].dtype}, not bf16")
+        sw_check_case(t, f"{L}x{L}", (torch.bfloat16,), 777, errs)
         log(f"# sw {L}x{L}: N={SW_PAIRS} bf16 forward/reverse/full-bucket/ragged bit-equal; "
-            f"{cells_f / SW_PAIRS:.0f} cells per pair forward, {cells_r / SW_PAIRS:.0f} reverse; best max {timed[L]['best_max']}")
+            f"{t['cells_f'] / SW_PAIRS:.0f} cells per pair forward, {t['cells_r'] / SW_PAIRS:.0f} reverse; "
+            f"best max {float(t['fwd'][0].max())}")
 
     # float PSSMs staged in f32 (small DBs and non-integral ones)
     fdb = ProfileDB.synthetic(seed=4, n_profiles=600, min_len=129, max_len=256)
@@ -969,19 +1024,22 @@ def sw_kernel_phase(results: dict, db) -> None:
         sw.sw_pairs_plain(fq, fp, fidx, ends=fends), "reverse 256x256 f32 float PSSMs",
     ))
 
-    # one 1024 x 1024 pair and one 4096-bucket pair (global-scratch path), f32 and bf16
-    for Lq, Lp, lp in ((1024, 1024, 1024), (384, 4096, 3000)):
+    # one 1024 x 1024 pair, one 4096-bucket pair and one 4,500-residue query
+    # of the 32768 query bucket (the long body's carries in the global
+    # buffer) against a 1,100-column profile, f32 and bf16
+    for Lq, Lp, lq, lp in ((1024, 1024, 1024, 1024), (384, 4096, 384, 3000), (32768, 4096, 4500, 1100)):
         cons = rng.integers(0, 20, lp)
         pssm = np.round(rng.normal(-2.0, 0.7, (lp, 20)))
         pssm[np.arange(lp), cons] += 7
         p = np.zeros((1, Lp, 21), np.float32)
         p[0, :lp, :20] = pssm
         q = np.full((1, Lq), 20, np.int32)
-        q[0] = cons[:Lq]
-        q[0, ::7] = rng.integers(0, 20, len(q[0, ::7]))
+        q[0, : min(lq, lp)] = cons[:lq]
+        q[0, lp:lq] = rng.integers(0, 20, max(lq - lp, 0))
+        q[0, :lq:7] = rng.integers(0, 20, len(q[0, :lq:7]))
         qt = torch.from_numpy(q).to(dev)
         pair = torch.zeros((2, 1), dtype=torch.int32, device=dev)
-        lens = (torch.tensor([Lq], dtype=torch.int32, device=dev), torch.tensor([lp], dtype=torch.int32, device=dev))
+        lens = (torch.tensor([lq], dtype=torch.int32, device=dev), torch.tensor([lp], dtype=torch.int32, device=dev))
         for dtype in (torch.float32, torch.bfloat16):
             pt = torch.from_numpy(p).to(dev, dtype)
             one = sw.sw_pairs(qt, pt, pair, lengths=lens)
@@ -989,7 +1047,7 @@ def sw_kernel_phase(results: dict, db) -> None:
             e1 = torch.stack([one[1], one[2]])
             errs.append(sw_equal(sw.sw_pairs(qt, pt, pair, ends=e1), sw.sw_pairs_plain(qt, pt, pair, ends=e1), f"reverse {Lq}x{Lp} {dtype}"))
     torch.cuda.synchronize()
-    log("# sw: float-PSSM f32 bucket, 1024x1024 pair and 4096-bucket pair bit-equal (forward and reverse)")
+    log("# sw: float-PSSM f32 bucket, 1024x1024 pair, 4096-bucket pair and 4500x1100 pair of the 32768 query bucket bit-equal (forward and reverse)")
 
     for name, case in sw_edge_cases().items():
         bq, bp, bidx, blens = case["bucket"]
@@ -1010,9 +1068,99 @@ def sw_kernel_phase(results: dict, db) -> None:
                                      sw.sw_pairs_plain(eq, pt, eidx, ends=e1), f"edge case {name} reverse {dtype}"))
     torch.cuda.synchronize()
     log(f"# sw: the {len(SW_EDGE_CASES)} edge cases bit-equal in f32 and bf16 (forward, full bucket, reverse where marked)")
+    t0 = time.perf_counter()
+    long_timed = sw_long_cases(np.random.default_rng(SEED + 3), dev)
+    for name, t in long_timed.items():
+        sw_check_case(t, name, (torch.bfloat16, torch.float32), t["n"] // 5 + 3, errs)
+        log(f"# sw long {name}: N={t['n']} bf16 and f32 forward/full-bucket/reverse/ragged bit-equal; "
+            f"{t['cells_f'] / t['n']:.0f} cells per pair forward, {t['cells_r'] / t['n']:.0f} reverse; "
+            f"best max {float(t['fwd'][0].max())}")
+    log(f"# sw long: cases drawn and checked in {time.perf_counter() - t0:.1f} s")
 
-    # timings at the annotate path's shapes: CUDA events, forward by bucket,
-    # reverse and the full bucket at 256, the plain version at 256 and 384
+    timing = sw_chunk_timing(timed)
+    long_timing = sw_long_timing(long_timed)
+    results["sw_pairs"] = {
+        "name": "sw_pairs",
+        "route": "cuda",
+        "source": "genomad_torch/csrc/sw.cu",
+        "replaces": "genomad_tpu/ops/sw_pallas.py:150",
+        "launches": None,  # filled from the annotate path's run
+        "max_abs_err": max(errs),
+        "ms": timing["forward_by_bucket"][256]["forward_ms"],
+        "plain_ms": timing["plain_256_ms"],
+        "bound_ms": timing["forward_by_bucket"][256]["bound_ms"],
+        "bound_by": timing["forward_by_bucket"][256]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes Smith-Waterman
+    }
+    results["sw_pairs_long"] = {
+        "name": "sw_pairs_long",
+        "route": "cuda",
+        "source": "genomad_torch/csrc/sw.cu",
+        "replaces": "genomad_tpu/ops/sw_pallas.py:150",
+        "launches": sw_long_search(),  # the long-profile search's, counted from 0
+        "max_abs_err": max(errs),
+        "ms": long_timing["256x4096"]["ms"],
+        "plain_ms": long_timing["plain_256x4096_ms"],
+        "bound_ms": long_timing["256x4096"]["bound_ms"],
+        "bound_by": long_timing["256x4096"]["bound_by"],
+        "library_ms": None,
+    }
+    log("# sw timing (bf16, N=4096, real lengths): " + json.dumps({**timing, "long_profile_db": long_timing}))
+
+
+def sw_check_case(t: dict, what: str, dtypes, n_ragged: int, errs: list) -> None:
+    """K1 on one drawn case (sw_chunk_cases, sw_long_cases) bit-equal to
+    the plain version with its profiles in each of ``dtypes``: forward with
+    the real lengths and over the full bucket, reverse (which rescores each
+    alignment to the same integral score), and the first ``n_ragged`` pairs
+    forward and reverse."""
+    from genomad_torch.ops import sw
+
+    (all_q, all_p, idx), lengths = t["args"], t["lengths"]
+    ragged = idx[:, :n_ragged].contiguous()
+    for dtype in dtypes:
+        p = all_p.to(dtype)
+        w = f"{what} {dtype}"
+        fwd = sw.sw_pairs(all_q, p, idx, lengths=lengths)
+        ref = sw.sw_pairs_plain(all_q, p, idx)
+        errs.append(sw_equal(fwd, ref, f"forward {w} (real lengths)"))
+        errs.append(sw_equal(sw.sw_pairs(all_q, p, idx), ref, f"forward {w} (full bucket)"))
+        ends = torch.stack([fwd[1], fwd[2]])
+        rev = sw.sw_pairs(all_q, p, idx, ends=ends, lengths=lengths)
+        errs.append(sw_equal(rev, sw.sw_pairs_plain(all_q, p, idx, ends=ends), f"reverse {w}"))
+        if not torch.equal(rev[0], fwd[0]):
+            raise AssertionError(f"K1 {w}: the reverse pass rescored an alignment differently (integral scores)")
+        r_ends = ends[:, :n_ragged].contiguous()
+        errs.append(sw_equal(sw.sw_pairs(all_q, p, ragged, lengths=lengths),
+                             sw.sw_pairs_plain(all_q, p, ragged), f"ragged N={n_ragged} forward {w}"))
+        errs.append(sw_equal(sw.sw_pairs(all_q, p, ragged, ends=r_ends, lengths=lengths),
+                             sw.sw_pairs_plain(all_q, p, ragged, ends=r_ends), f"ragged N={n_ragged} reverse {w}"))
+    torch.cuda.synchronize()
+
+
+def sw_chunk_cases(db, rng, dev) -> dict:
+    """The annotate path's buckets of ``db`` (SW_BUCKETS, N = SW_PAIRS,
+    drawn in that order from ``rng``): each bucket's operands, its forward
+    result (real lengths), the ends that select its reverse pass, and the
+    cells of both passes."""
+    from genomad_torch.ops import sw
+
+    timed = {}
+    for L in SW_BUCKETS:
+        all_q, all_p, idx, lengths = sw_bucket_pairs(db, L, SW_PAIRS, rng, dev)
+        fwd = sw.sw_pairs(all_q, all_p, idx, lengths=lengths)
+        ends = torch.stack([fwd[1], fwd[2]])
+        timed[L] = dict(args=(all_q, all_p, idx), lengths=lengths, fwd=fwd, ends=ends, n=SW_PAIRS,
+                        cells_f=sw_cells(*lengths, idx), cells_r=sw_cells(*lengths, idx, ends))
+    return timed
+
+
+def sw_chunk_timing(timed: dict, plain: bool = True) -> dict:
+    """CUDA-event times at the annotate path's shapes: forward by bucket,
+    reverse and the full bucket at 256, and (``plain``) the plain version
+    at 256 and 384; each with its Gcells/s and bound."""
+    from genomad_torch.ops import sw
+
     by_bucket = {}
     for L in sorted(SW_BUCKETS):
         t = timed[L]
@@ -1021,35 +1169,98 @@ def sw_kernel_phase(results: dict, db) -> None:
         by_bucket[L] = {"forward_ms": ms_l, "gcells_s": t["cells_f"] / ms_l / 1e6, "bound_ms": bound_l, "bound_by": by_l}
     t = timed[256]
     all_q, all_p, idx = t["args"]
-    plain = {L: cuda_time(lambda: sw.sw_pairs_plain(*timed[L]["args"]), iters=3, warmup=1) for L in (256, 384)}
     rev_ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx, ends=t["ends"], lengths=t["lengths"]), iters=20)
     full_ms = cuda_time(lambda: sw.sw_pairs(all_q, all_p, idx), iters=20)  # every bucket cell, no real lengths
     rev_bound = sw_bound(all_q, all_p, idx, *t["lengths"], t["cells_r"])
     full_lengths = tuple(torch.full_like(n, 256) for n in t["lengths"])
     full_bound = sw_bound(all_q, all_p, idx, *full_lengths, SW_PAIRS * 256 * 256)
-    results["sw_pairs"] = {
-        "name": "sw_pairs",
-        "route": "cuda",
-        "source": "genomad_torch/csrc/sw.cu",
-        "replaces": "genomad_tpu/ops/sw_pallas.py:150",
-        "launches": None,  # filled from the annotate path's run
-        "max_abs_err": max(errs),
-        "ms": by_bucket[256]["forward_ms"],
-        "plain_ms": plain[256],
-        "bound_ms": by_bucket[256]["bound_ms"],
-        "bound_by": by_bucket[256]["bound_by"],
-        "library_ms": None,  # no PyTorch call computes Smith-Waterman
+    out = {"forward_by_bucket": by_bucket}
+    if plain:
+        for L in (256, 384):
+            out[f"plain_{L}_ms"] = cuda_time(lambda: sw.sw_pairs_plain(*timed[L]["args"]), iters=3, warmup=1)
+    return {
+        **out,
+        "forward_256_full_bucket_ms": full_ms, "full_bucket_gcells_s": SW_PAIRS * 256 * 256 / full_ms / 1e6,
+        "forward_256_full_bucket_bound_ms": full_bound[0], "forward_256_full_bucket_bound_by": full_bound[1],
+        "reverse_256_ms": rev_ms, "reverse_256_gcells_s": t["cells_r"] / rev_ms / 1e6,
+        "reverse_256_bound_ms": rev_bound[0], "reverse_256_bound_by": rev_bound[1],
+        "library_ms": "null: no PyTorch call computes Smith-Waterman",
     }
-    log(
-        "# sw timing (bf16, N=4096, real lengths): " + json.dumps({
-            "forward_by_bucket": by_bucket, "plain_256_ms": plain[256], "plain_384_ms": plain[384],
-            "forward_256_full_bucket_ms": full_ms, "full_bucket_gcells_s": SW_PAIRS * 256 * 256 / full_ms / 1e6,
-            "forward_256_full_bucket_bound_ms": full_bound[0], "forward_256_full_bucket_bound_by": full_bound[1],
-            "reverse_256_ms": rev_ms, "reverse_256_gcells_s": t["cells_r"] / rev_ms / 1e6,
-            "reverse_256_bound_ms": rev_bound[0], "reverse_256_bound_by": rev_bound[1],
-            "library_ms": "null: no PyTorch call computes Smith-Waterman",
-        })
-    )
+
+
+def sw_long_cases(rng, dev) -> dict:
+    """The long-profile DB's cases (SW_LONG_CASES, drawn in that order from
+    ``rng``): each case's operands, its forward result (real lengths), the
+    ends of its reverse pass and the cells of both passes."""
+    from genomad_torch.ops import sw
+
+    t0 = time.perf_counter()
+    ldb = long_profile_db()
+    log(f"# sw long: {SW_LONG_DB_PROFILES}-profile DB of 513-3,000 columns built in {time.perf_counter() - t0:.1f} s")
+    timed = {}
+    for name, Lp, Lq, n in SW_LONG_CASES:
+        all_q, all_p, idx, lengths = sw_bucket_pairs(ldb, Lp, n, rng, dev, Lq_bound=Lq)
+        if all_p.dtype != torch.bfloat16:
+            raise AssertionError(f"the {SW_LONG_DB_PROFILES}-profile integral DB staged as {all_p.dtype}, not bf16")
+        fwd = sw.sw_pairs(all_q, all_p, idx, lengths=lengths)
+        ends = torch.stack([fwd[1], fwd[2]])
+        timed[name] = dict(args=(all_q, all_p, idx), lengths=lengths, fwd=fwd, ends=ends, n=n,
+                           cells_f=sw_cells(*lengths, idx), cells_r=sw_cells(*lengths, idx, ends))
+    return timed
+
+
+def sw_long_timing(timed: dict, plain: bool = True) -> dict:
+    """CUDA-event times of the long-profile DB's cases (bf16, real lengths)
+    and of the reverse pass at 256 x 4096, each with its cells, Gcells/s,
+    bound and x-bound; and (``plain``) the plain version at 256 x 4096."""
+    from genomad_torch.ops import sw
+
+    def row(ms, cells, args, lengths):
+        b, by = sw_bound(*args, *lengths, cells)
+        return {"ms": ms, "cells": cells, "gcells_s": cells / ms / 1e6, "bound_ms": b, "bound_by": by, "x_bound": ms / b}
+
+    out = {}
+    for name, Lp, _, n in SW_LONG_CASES:
+        t = timed[name]
+        ms = cuda_time(lambda: sw.sw_pairs(*t["args"], lengths=t["lengths"]), iters=20 if Lp <= 1024 else 5)
+        out[name] = {"n": n, **row(ms, t["cells_f"], t["args"], t["lengths"])}
+    t = timed["256x4096"]
+    ms = cuda_time(lambda: sw.sw_pairs(*t["args"], ends=t["ends"], lengths=t["lengths"]), iters=5)
+    out["256x4096 reverse"] = {"n": t["n"], **row(ms, t["cells_r"], t["args"], t["lengths"])}
+    if plain:
+        out["plain_256x4096_ms"] = cuda_time(lambda: sw.sw_pairs_plain(*t["args"]), iters=2, warmup=1)
+    return out
+
+
+def sw_long_search() -> int:
+    """``protein_search.search`` over a DB with long profiles
+    (SW_LONG_SEARCH): the card's hits equal device="cpu"'s. Returns the
+    long body's launches in the card's search, counted from 0."""
+    from genomad_torch.ops import protein_search as ps
+    from genomad_torch.ops import sw
+
+    db, names, seqs, planted = long_search_case(**SW_LONG_SEARCH)
+    sw.sw_pairs.launches = sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = sw.sw_pairs.long_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = ps.search(names, seqs, db)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = sw.sw_pairs.long_launches
+    t0 = time.perf_counter()
+    on_cpu = ps.search(names, seqs, db, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if on_card != on_cpu or not on_card:
+        raise AssertionError(f"long-profile search: card {len(on_card)} hits != CPU {len(on_cpu)} hits")
+    if launches <= 0:
+        raise AssertionError("the long-profile search never launched K1's long body")
+    found = {kind: sum(on_card.get(q, ("",))[0] == planted[q] for q in planted if int(q[2:]) % 3 == r)
+             for kind, r in (("long windows", 0), ("short consensus", 1))}
+    log(f"# sw long search ({db.n_profiles} profiles, {SW_LONG_SEARCH['n_long']} of "
+        f"{SW_LONG_SEARCH['long_len'][0]}-{SW_LONG_SEARCH['long_len'][1]} columns; {len(names)} queries): card == CPU, "
+        f"{len(on_card)} hits; planted found {found}; long-body launches {launches} of {sw.sw_pairs.launches}; "
+        f"{card_s:.2f} s on the card (cold), {cpu_s:.1f} s on the CPU")
+    return launches
 
 
 def _sw_edge_bucket(Lq, Lp, q_lens, p_lens, rng, planted=None):
@@ -1086,6 +1297,8 @@ SW_EDGE_CASES = (
     "tie_row_cols_31_32_Lp64", "tie_row_cols_255_256_Lp384", "tie_row_cols_263_264_Lp384", "tie_two_rows",
     "lengths_1_31_33", "length_257", "ncols_5", "all_negative", "reverse_257",
     "lengths_Lp512", "lengths_Lp768", "lengths_Lp1024",
+    "tie_row_cols_511_512_Lp4096", "tie_row_cols_1023_1024_Lp4096", "tie_two_slabs_Lp4096", "gap_across_1024_Lp4096",
+    "lengths_1025_2048_3001_Lp4096", "length_5000_Lp32768",
 )
 
 
@@ -1102,7 +1315,19 @@ def sw_edge_cases() -> dict:
     KMAX and k rounded up past ncols (500 and 200 columns at 512; 700, 500
     and 130 at 768; 900 and 200 at 1024), forward and reverse.
     tests/test_torch_sw.py holds the plain version against the JAX oracle
-    on them; the sw phase holds the kernel against the plain version."""
+    on them; the sw phase holds the kernel against the plain version.
+
+    The long body (Lp > 1024: slabs of 512 columns with per-row carries):
+    equal maxima at columns 511 and 512, and 1,023 and 1,024, of one row
+    (the first wins) and in two slabs with the later slab's cell in the
+    earlier row (it wins); a
+    horizontal gap from column 1,014 to 1,034 that the best alignment needs
+    (its E crosses the slab edge in the carry); real lengths 1,025, 2,048
+    and 3,001 against queries of up to 3,001 residues (consensus matches
+    across the slabs; 1,025 ends at the second slab's only column), forward
+    and reverse; a 5,000-column profile of the 32,768 bucket matched
+    from column 3,900 on. In f32 the 4,096-row cases keep their carries in
+    the global buffer, in bf16 in shared memory."""
     rng = np.random.default_rng(SEED + 7)
     cases = {}
 
@@ -1126,6 +1351,28 @@ def sw_edge_cases() -> dict:
                                     ("lengths_Lp768", 768, [700, 520, 140], [700, 500, 130]),
                                     ("lengths_Lp1024", 1024, [900, 210], [900, 200])):
         add(name, _sw_edge_bucket(L, L, q_lens, p_lens, rng), reverse=True)
+
+    for lo in (511, 1023):
+        add(f"tie_row_cols_{lo}_{lo + 1}_Lp4096",
+            _sw_edge_bucket(16, 4096, [16], [1500], rng, planted=[(0, 3, c, 9.0) for c in (lo, lo + 1)]),
+            expect=[(9.0, 3, lo)])
+    add("tie_two_slabs_Lp4096",
+        _sw_edge_bucket(16, 4096, [16], [2100], rng, planted=[(0, 6, 500, 9.0), (0, 2, 1500, 9.0)]),
+        expect=[(9.0, 2, 1500)])
+    # two diagonal runs of ten 6s, (2..11, 1005..1014) and (12..21,
+    # 1035..1044): joined by a gap of 20 columns in row 11 they score
+    # 60 - 30 + 60 = 90, either alone 60
+    runs = [(0, 2 + d, 1005 + d, 6.0) for d in range(10)] + [(0, 12 + d, 1035 + d, 6.0) for d in range(10)]
+    add("gap_across_1024_Lp4096", _sw_edge_bucket(24, 4096, [24], [1100], rng, planted=runs),
+        expect=[(90.0, 21, 1044)], reverse=True)
+    lq, lp, _, lens = _sw_edge_bucket(4096, 4096, [3001, 1500, 700], [1025, 2048, 3001], rng)
+    pairs = np.array([[0, 1, 2, 0], [0, 1, 2, 2]], np.int32)  # the three planted matches and one other
+    add("lengths_1025_2048_3001_Lp4096", (lq, lp, pairs, lens), reverse=True)
+    long_q, long_p, long_idx, long_lens = _sw_edge_bucket(384, 32768, [300], [5000], rng)
+    cons = long_p[0, 3900:4200, :20].argmax(1)  # a match from column 3,900 on
+    long_q[0, :300] = cons
+    long_q[0, 4:300:9] = rng.integers(0, 20, len(range(4, 300, 9)))
+    add("length_5000_Lp32768", (long_q, long_p, long_idx, long_lens), reverse=True)
     return cases
 
 
@@ -1441,6 +1688,7 @@ def _kernel_counts() -> dict:
     return {
         "sw_pairs_forward": sw.sw_pairs.forward_launches,
         "sw_pairs_reverse": sw.sw_pairs.reverse_launches,
+        "sw_pairs_long": sw.sw_pairs.long_launches,
         "embed_conv": conv.embed_conv.launches,
         "embed_conv_bases": conv.embed_conv_bases.launches,
         "causal_conv": conv.causal_conv.launches,
@@ -1452,7 +1700,7 @@ def _kernel_counts() -> dict:
 def _reset_kernel_counts() -> None:
     from genomad_torch.ops import conv, patch_reduce, sw
 
-    sw.sw_pairs.launches = sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = 0
+    sw.sw_pairs.launches = sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = sw.sw_pairs.long_launches = 0
     for k in (conv.embed_conv, conv.embed_conv_bases, conv.causal_conv, patch_reduce.fused_reduce, patch_reduce.patch_reduce):
         k.launches = 0
 
@@ -2064,13 +2312,20 @@ REQUIRES = {
 }
 
 
+def parse_args(argv: list[str]) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="Smoke run of genomad_torch on one NVIDIA GPU.")
+    parser.add_argument("--only", metavar="PHASE[,PHASE]", help=f"run only these of {', '.join(PHASES)}")
+    parser.add_argument("--sw-times", metavar="TREE",
+                        help="time K1's cases (no checks) with the genomad_torch of the checkout TREE, "
+                             "for turns between two trees; prints one '# sw times' line")
+    return parser.parse_args(argv)
+
+
 def select_phases(argv: list[str]) -> tuple[str, ...]:
     """The phases a run takes after device and build: every phase with no
     arguments; with ``--only PHASE[,PHASE]`` the named ones and those they
     read from, in the script's order. Raises ValueError on an unknown name."""
-    parser = argparse.ArgumentParser(description="Smoke run of genomad_torch on one NVIDIA GPU.")
-    parser.add_argument("--only", metavar="PHASE[,PHASE]", help=f"run only these of {', '.join(PHASES)}")
-    args = parser.parse_args(argv)
+    args = parse_args(argv)
     if args.only is None:
         return PHASES
     names = {n.strip() for n in args.only.split(",") if n.strip()}
@@ -2082,11 +2337,43 @@ def select_phases(argv: list[str]) -> tuple[str, ...]:
     return tuple(p for p in PHASES if p in names)
 
 
+def sw_times(tree: str) -> None:
+    """K1's timed cases (sw_chunk_timing, sw_long_timing without the plain
+    version) on the pairs of the sw phase, run by the genomad_torch of the
+    checkout ``tree`` (any version with ``ops.sw.sw_pairs``), and a digest
+    of every case's forward result: two trees timed in turns on one card
+    give equal digests when their kernels agree bit for bit."""
+    import hashlib
+
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import genomad_torch
+    from genomad_torch.ops import _build
+
+    _build.build(("sw",))
+    dev = torch.device("cuda")
+    chunk = sw_chunk_cases(bench_db(SW_DB_PROFILES), np.random.default_rng(SEED + 2), dev)
+    long = sw_long_cases(np.random.default_rng(SEED + 3), dev)
+    digest = hashlib.sha256()
+    for t in (*chunk.values(), *long.values()):
+        for x in t["fwd"]:
+            digest.update(x.cpu().numpy().tobytes())
+    log("# sw times: " + json.dumps({
+        "package": str(Path(genomad_torch.__file__).parent), "card": nvidia_smi(),
+        "chunk": sw_chunk_timing(chunk, plain=False), "long_profile_db": sw_long_timing(long, plain=False),
+        "forward_digest": digest.hexdigest()[:16],
+    }))
+
+
 def main(argv: list[str] | None = None) -> int:
-    phases = select_phases(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    phases = select_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.", file=sys.stderr)
         return 1
+    tree = parse_args(argv).sw_times
+    if tree is not None:
+        sw_times(tree)
+        return 0
     from genomad_torch.ops import _build
 
     failures = []

@@ -74,13 +74,28 @@
 //   diagonal shuffle, the scan and the query code; the search for the first
 //   column runs only in a row that raises a lane's best.
 //
-// Longer buckets (4096, 32768), the strip body (`sw_kernel`): lanes walk the
-// profile columns in strips of 32, row by row; H and F live in a global
-// scratch the wrapper allocates and the scores are read from global memory;
-// a grid-stride loop bounds the scratch by the number of warps. The
-// horizontal gap is a warp inclusive prefix max (__shfl_up_sync) carried
-// across strips, shifted by one, and a warp reduction gives each row's max
-// and its first index.
+// Longer buckets (4096, 32768), the long body (`sw_slab_kernel`): the same
+// body over column slabs. One warp per pair walks its columns in slabs of
+// 512 (KMAX 16), left to right; each slab stages its profile columns as
+// above (with a lane's NCOL loads in flight, since a slab is staged once
+// per sweep of the rows) and runs every row with H and F in registers.
+// Between slabs a row carries two floats, which lane 0 reads a row ahead
+// and writes after the row: the previous slab's H at its last column in
+// the row above (lane 0's diagonal) and the running max of t over every
+// earlier column (the scan's start at lane 0). Max is exact, so the slabs
+// are bit-equal to one pass. With the chunk body's two shuffles rotated
+// (lane 0 reads lane 31), lane 0 holds both carries of the next slab at no
+// extra shuffle. The carries lie in a global buffer of Lq float2 per warp
+// (16 bytes per row per slab; the strip body this replaces moved H and F
+// through a global scratch, 16 bytes per cell), so shared memory holds only
+// the staged slabs: 5 blocks of 2 warps per SM in bf16. The grid is
+// persistent, one warp per buffer slot, and a warp takes its next pair
+// from an atomic counter, which balances pairs of unequal length. Every
+// slab starts its rows at 0, so a lane merges its slabs' bests by the full
+// rule (highest value, lowest row, lowest column), as the final warp
+// reduction does. Slabs of 1,024, carries in shared memory beside the
+// staged slab (fewer warps per SM) and a static assignment of pairs to
+// warps were timed on the card and were slower.
 //
 // Tuning: WARPS = 2 pairs per block in both bodies, and bf16 profiles are
 // staged as bf16. Shared memory, not the block size, bounds the warps per
@@ -95,9 +110,9 @@
 //   score 0 and can never be strictly greater than the running best, and
 //   the first-index rule keeps real columns ahead of padding on ties.
 
+#include <algorithm>
 #include <cstdint>
 #include <limits>
-#include <math_constants.h>
 
 #include "common.cuh"
 
@@ -157,139 +172,77 @@ __device__ __forceinline__ PairView pair_view(const int* __restrict__ q, const i
     return pv;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32) sw_kernel(
-    const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
-    const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
-    float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out,
-    float* __restrict__ scratch, int N, int Lq, int Lp, int ld) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int gwarp = blockIdx.x * WARPS + warp;
-    const int n_warps = gridDim.x * WARPS;
+// ---------------------------------------------------------------------------
+// Register-chunk body (Lp <= 1024) and the slabs of the long body
+// ---------------------------------------------------------------------------
 
-    float* H = scratch + (size_t)gwarp * 2 * ld;
-    float* Fc = H + ld;
+// Where a slab of the long body lies in its pair: its first column and the
+// per-row carries between slabs, carry[i] = (H of row i - 1 at the previous
+// slab's last column, the max of t over the earlier slabs' columns in row
+// i). Lane 0 alone reads and writes them, in row order, so each read of
+// the previous slab's carry comes before its overwrite in program order.
+struct Slab {
+    int c0;
+    float2* carry;
+    bool cin, cout;  // read the previous slab's carries / write this slab's
+};
 
-    for (int pair = gwarp; pair < N; pair += n_warps) {
-        const PairView pv = pair_view(q, idx, ends, q_len, p_len, pair, N, Lq, Lp);
-        const T* prow = p + (size_t)pv.pi * Lp * NCOL;
-        const int nrows = pv.nrows, ncols = pv.ncols;
-        const int nstrips = (ncols + 31) >> 5;
-        const int ncols_pad = nstrips << 5;
-
-        __syncwarp();
-        for (int j = lane; j < ncols_pad; j += 32) {
-            H[j] = 0.f;
-            Fc[j] = -CUDART_INF_F;
-        }
-        __syncwarp();
-
-        float best = 0.f;
-        int best_i = 0, best_j = 0;
-        int code = nrows > 0 ? pv.query_code(0) : PAD;
-        for (int i = 0; i < nrows; ++i) {
-            const int next = i + 1 < nrows ? pv.query_code(i + 1) : PAD;
-            float carry_h = 0.f;             // h_prev of the column left of the strip
-            float carry_m = -CUDART_INF_F;   // running prefix max of t
-            float lane_best = -CUDART_INF_F;
-            int lane_arg = 0x7fffffff;
-            for (int s = 0; s < nstrips; ++s) {
-                const int j = (s << 5) + lane;
-                const bool valid = j < ncols;
-                const float hp = H[j];
-                const float fp = Fc[j];
-                const int r = valid ? pv.prof_row(j) : -1;
-                const float sc = r >= 0 ? gt::to_float(prow[(size_t)r * NCOL + code]) : 0.f;
-                const float up = __shfl_up_sync(FULL, hp, 1);
-                const float diag = lane == 0 ? carry_h : up;
-                carry_h = __shfl_sync(FULL, hp, 31);
-                const float f = fmaxf(__fsub_rn(hp, GAP_OPEN), __fsub_rn(fp, GAP_EXTEND));
-                const float h0 = fmaxf(fmaxf(__fadd_rn(diag, sc), f), 0.f);
-                const float colf = (float)j;
-                // t = h0 - open + ext * col (ext = 1: the product is exact)
-                float t = __fadd_rn(__fsub_rn(h0, GAP_OPEN), colf);
+// Stages a slab's profile columns [c0, c0 + 32 K) as the chunk body does
+// (the score of column c0 + l K + c for query code q at Ps[q 32 K + c 32 +
+// l]; -inf past ncols, 0 on a reverse pass's rows before the profile's
+// start), with NCOL loads in flight per lane (32 columns a step): a slab is
+// staged once per sweep of the pair's rows, so the loads' latency weighs
+// more than in the chunk body, which stages once per pair.
+template <typename T, int K>
+__device__ __forceinline__ void stage_slab(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+                                           int lane, int c0) {
+    constexpr int LDK = 32 * K;
+    for (int t0 = 0; t0 < K * NCOL; t0 += NCOL) {
+        T v[NCOL];
+        int at[NCOL];
 #pragma unroll
-                for (int off = 1; off < 32; off <<= 1) {
-                    // lanes below `off` get their own value back: max is unchanged
-                    t = fmaxf(t, __shfl_up_sync(FULL, t, off));
-                }
-                t = fmaxf(t, carry_m);
-                const float prev = __shfl_up_sync(FULL, t, 1);
-                const float m = lane == 0 ? carry_m : prev;
-                carry_m = __shfl_sync(FULL, t, 31);
-                const float e = __fsub_rn(m, __fsub_rn(colf, GAP_EXTEND));
-                const float h = fmaxf(h0, e);
-                H[j] = h;
-                Fc[j] = f;
-                if (valid && h > lane_best) {
-                    lane_best = h;
-                    lane_arg = j;
-                }
+        for (int u = 0; u < NCOL; ++u) {
+            const int e = lane + 32 * (t0 + u);
+            const int j = e / NCOL;
+            const int code = e - j * NCOL;
+            at[u] = code * LDK + (j % K) * 32 + j / K;
+            v[u] = gt::from_float<T>(NEG_INF);
+            if (c0 + j < pv.ncols) {
+                const int r = pv.prof_row(c0 + j);
+                v[u] = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
             }
+        }
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                const float ov = __shfl_xor_sync(FULL, lane_best, off);
-                const int oa = __shfl_xor_sync(FULL, lane_arg, off);
-                if (ov > lane_best || (ov == lane_best && oa < lane_arg)) {
-                    lane_best = ov;
-                    lane_arg = oa;
-                }
-            }
-            if (lane_best > best) {
-                best = lane_best;
-                best_i = i;
-                best_j = lane_arg;
-            }
-            code = next;
-        }
-        if (lane == 0) {
-            best_out[pair] = best;
-            ei_out[pair] = best_i;
-            ej_out[pair] = best_j;
-        }
+        for (int u = 0; u < NCOL; ++u) Ps[at[u]] = v[u];
     }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* p, const void* idx, const void* ends, const void* q_len,
-                   const void* p_len, void* best, void* ei, void* ej, void* scratch, int N, int Lq, int Lp,
-                   int ld, int n_warps, cudaStream_t s) {
-    // the scratch holds n_warps slots: launch no more warps than that
-    const int blocks = n_warps / WARPS;
-    if (blocks < 1) return cudaErrorInvalidValue;
-    sw_kernel<T><<<blocks, WARPS * 32, 0, s>>>(
-        static_cast<const int*>(q), static_cast<const T*>(p), static_cast<const int*>(idx),
-        static_cast<const int*>(ends), static_cast<const int*>(q_len), static_cast<const int*>(p_len),
-        static_cast<float*>(best), static_cast<int*>(ei), static_cast<int*>(ej), static_cast<float*>(scratch),
-        N, Lq, Lp, ld);
-    return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Register-chunk body (Lp <= 1024)
-// ---------------------------------------------------------------------------
-
-// One pair with K columns per lane (32 K >= ncols): stages the profile, runs
-// the rows, and leaves the lane's best (value, row, column).
-template <typename T, int K>
+// One pair (or one slab of it, CARRY) with K columns per lane (32 K >= the
+// columns left): stages the profile, runs the rows, and leaves the lane's
+// best (value, row, column). CARRY = false is the register-chunk body.
+template <typename T, int K, bool CARRY>
 __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
-                                           int lane, float& best, int& best_i, int& best_j) {
+                                           int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
     constexpr int LDK = 32 * K;  // staged elements per query code
-    __syncwarp();  // the previous pair has read its profile
-    for (int e = lane; e < LDK * NCOL; e += 32) {
-        const int j = e / NCOL;
-        const int code = e - j * NCOL;
-        T v = gt::from_float<T>(NEG_INF);
-        if (j < pv.ncols) {
-            const int r = pv.prof_row(j);
-            v = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
+    const int c0 = CARRY ? sl.c0 : 0;
+    __syncwarp();  // the previous pair (or slab) has read its profile
+    if constexpr (CARRY) {
+        stage_slab<T, K>(pv, prow, Ps, lane, c0);
+    } else {
+        for (int e = lane; e < LDK * NCOL; e += 32) {
+            const int j = e / NCOL;
+            const int code = e - j * NCOL;
+            T v = gt::from_float<T>(NEG_INF);
+            if (j < pv.ncols) {
+                const int r = pv.prof_row(j);
+                v = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
+            }
+            Ps[code * LDK + (j % K) * 32 + j / K] = v;
         }
-        Ps[code * LDK + (j % K) * 32 + j / K] = v;
     }
     __syncwarp();
 
-    const int j0 = lane * K;
+    const int j0 = c0 + lane * K;
     float H[K], Fp[K], colf[K], colm1[K];
 #pragma unroll
     for (int c = 0; c < K; ++c) {
@@ -302,11 +255,22 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
     float lbest = 0.f;
     int li = 0, lc = 0;
     int code = pv.query_code(0);
+    // lane 0's carries of the row (0, -inf on the other lanes and in slab 0)
+    float2 cur = make_float2(0.f, NEG_INF);
+    if constexpr (CARRY) {
+        if (sl.cin && lane == 0) cur = sl.carry[0];
+    }
     for (int i = 0; i < pv.nrows; ++i) {
         const int next = i + 1 < pv.nrows ? pv.query_code(i + 1) : PAD;
+        float2 nxt = make_float2(0.f, NEG_INF);
+        if constexpr (CARRY) {
+            if (sl.cin && lane == 0 && i + 1 < pv.nrows) nxt = sl.carry[i + 1];  // a row ahead
+        }
         const T* s = Ps + code * LDK + lane;
-        const float up = __shfl_up_sync(FULL, H[K - 1], 1);
-        float diag = lane == 0 ? 0.f : up;
+        // CARRY rotates: lane 0 gets lane 31's last H of the row above, the
+        // carry of row i - 1 for the next slab
+        const float up = CARRY ? __shfl_sync(FULL, H[K - 1], (lane + 31) & 31) : __shfl_up_sync(FULL, H[K - 1], 1);
+        float diag = lane == 0 ? (CARRY ? cur.x : 0.f) : up;
         float P[K];  // running max of t over the chunk, through column c
         float run = NEG_INF;
 #pragma unroll
@@ -320,13 +284,18 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
             run = fmaxf(run, __fadd_rn(__fsub_rn(h0, GAP_OPEN), colf[c]));
             P[c] = run;
         }
+        if constexpr (CARRY) run = fmaxf(run, cur.y);  // the earlier slabs' t enter the scan at lane 0
         // inclusive scan of the chunk maxima, then shifted: the max of t over
         // every column of the earlier lanes (lanes below `off` get their own
         // value back, which leaves the max unchanged)
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) run = fmaxf(run, __shfl_up_sync(FULL, run, off));
-        const float below = __shfl_up_sync(FULL, run, 1);
-        const float ex = lane == 0 ? NEG_INF : below;
+        // CARRY rotates: lane 0 gets the max of t through the slab's last column
+        const float below = CARRY ? __shfl_sync(FULL, run, (lane + 31) & 31) : __shfl_up_sync(FULL, run, 1);
+        const float ex = lane == 0 ? (CARRY ? cur.y : NEG_INF) : below;
+        if constexpr (CARRY) {
+            if (sl.cout && lane == 0) sl.carry[i] = make_float2(up, below);  // after its read: same lane
+        }
         float rmax = 0.f;
 #pragma unroll
         for (int c = 0; c < K; ++c) {
@@ -345,6 +314,7 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
             lc = first;
         }
         code = next;
+        cur = nxt;
     }
     best = lbest;
     best_i = li;
@@ -355,17 +325,42 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
 // up to KMAX = 12, eight bodies above.
 __host__ __device__ constexpr int chunk_step(int kmax) { return kmax <= 12 ? 1 : kmax / 8; }
 
-template <typename T, int K, int KMAX>
+template <typename T, int K, int KMAX, bool CARRY>
 __device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
-                                               int lane, float& best, int& best_i, int& best_j) {
+                                               int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
     if constexpr (K >= KMAX) {
-        chunk_pair<T, KMAX>(pv, prow, Ps, lane, best, best_i, best_j);
+        chunk_pair<T, KMAX, CARRY>(pv, prow, Ps, lane, sl, best, best_i, best_j);
     } else {
         if (k <= K) {
-            chunk_pair<T, K>(pv, prow, Ps, lane, best, best_i, best_j);
+            chunk_pair<T, K, CARRY>(pv, prow, Ps, lane, sl, best, best_i, best_j);
         } else {
-            chunk_dispatch<T, K + chunk_step(KMAX), KMAX>(k, pv, prow, Ps, lane, best, best_i, best_j);
+            chunk_dispatch<T, K + chunk_step(KMAX), KMAX, CARRY>(k, pv, prow, Ps, lane, sl, best, best_i, best_j);
         }
+    }
+}
+
+// highest value, then the lowest row, then the lowest column
+__device__ __forceinline__ void take_best(float v, int i, int j, float& best, int& best_i, int& best_j) {
+    if (v > best || (v == best && (i < best_i || (i == best_i && j < best_j)))) {
+        best = v;
+        best_i = i;
+        best_j = j;
+    }
+}
+
+// The warp's best cell by take_best's rule; lane 0 writes it.
+__device__ __forceinline__ void write_best(float best, int best_i, int best_j, int lane, int pair,
+                                           float* __restrict__ best_out, int* __restrict__ ei_out,
+                                           int* __restrict__ ej_out) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        take_best(__shfl_xor_sync(FULL, best, off), __shfl_xor_sync(FULL, best_i, off),
+                  __shfl_xor_sync(FULL, best_j, off), best, best_i, best_j);
+    }
+    if (lane == 0) {
+        best_out[pair] = best;
+        ei_out[pair] = best_i;
+        ej_out[pair] = best_j;
     }
 }
 
@@ -386,24 +381,55 @@ __global__ void __launch_bounds__(WARPS * 32) sw_chunk_kernel(
     int best_i = 0, best_j = 0;
     if (pv.nrows > 0 && pv.ncols > 0) {
         const int k = (pv.ncols + 31) >> 5;
-        chunk_dispatch<T, chunk_step(KMAX), KMAX>(k, pv, p + (size_t)pv.pi * Lp * NCOL, Ps, lane, best, best_i, best_j);
+        chunk_dispatch<T, chunk_step(KMAX), KMAX, false>(k, pv, p + (size_t)pv.pi * Lp * NCOL, Ps, lane,
+                                                         Slab{0, nullptr, false, false}, best, best_i, best_j);
     }
-    // highest value, then the lowest row, then the lowest column
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(FULL, best, off);
-        const int oi = __shfl_xor_sync(FULL, best_i, off);
-        const int oj = __shfl_xor_sync(FULL, best_j, off);
-        if (ov > best || (ov == best && (oi < best_i || (oi == best_i && oj < best_j)))) {
-            best = ov;
-            best_i = oi;
-            best_j = oj;
+    write_best(best, best_i, best_j, lane, pair, best_out, ei_out, ej_out);
+}
+
+// The long body (Lp > 1024): a pair's columns in slabs of SLAB = 32 KMAX,
+// walked left to right, each a run of the register-chunk body over all rows
+// with the carries of Slab. A persistent grid: each warp owns Lq float2 of
+// carries at carry + 1 + warp * Lq and takes its next pair from the counter
+// at carry[0] (zero at launch), so the pairs' unequal costs balance.
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(WARPS * 32) sw_slab_kernel(
+    const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
+    const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
+    float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out, float2* __restrict__ carry_g,
+    int N, int Lq, int Lp) {
+    constexpr int SLAB = 32 * KMAX;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    T* Ps = reinterpret_cast<T*>(smem_raw) + (size_t)warp * NCOL * SLAB;
+    int* next = reinterpret_cast<int*>(carry_g);
+    float2* carry = carry_g + 1 + (size_t)(blockIdx.x * WARPS + warp) * Lq;
+
+    for (;;) {
+        int pair = 0;
+        if (lane == 0) pair = atomicAdd(next, 1);
+        pair = __shfl_sync(FULL, pair, 0);
+        if (pair >= N) break;
+        const PairView pv = pair_view(q, idx, ends, q_len, p_len, pair, N, Lq, Lp);
+        const T* prow = p + (size_t)pv.pi * Lp * NCOL;
+        float best = 0.f;
+        int best_i = 0, best_j = 0;
+        const int nslabs = pv.nrows > 0 ? (pv.ncols + SLAB - 1) / SLAB : 0;
+        for (int s = 0; s < nslabs; ++s) {
+            // rows start again at 0 in every slab: its best merges by take_best's rule
+            const Slab sl{s * SLAB, carry, s > 0, s + 1 < nslabs};
+            float b;
+            int bi, bj;
+            if (sl.cout) {
+                chunk_pair<T, KMAX, true>(pv, prow, Ps, lane, sl, b, bi, bj);
+            } else {
+                const int k = (pv.ncols - sl.c0 + 31) >> 5;
+                chunk_dispatch<T, chunk_step(KMAX), KMAX, true>(k, pv, prow, Ps, lane, sl, b, bi, bj);
+            }
+            take_best(b, bi, bj, best, best_i, best_j);
         }
-    }
-    if (lane == 0) {
-        best_out[pair] = best;
-        ei_out[pair] = best_i;
-        ej_out[pair] = best_j;
+        write_best(best, best_i, best_j, lane, pair, best_out, ei_out, ej_out);
     }
 }
 
@@ -439,22 +465,68 @@ cudaError_t launch_chunk_bucket(const void* q, const void* p, const void* idx, c
     return cudaErrorInvalidValue;
 }
 
+constexpr int CHUNK_MAX_LP = 1024;  // longer buckets take the long body
+constexpr int SLAB_KMAX = 16;       // the long body's slabs: 512 columns
+
+// The long body's persistent grid: as many warps as fit on the card at
+// once (shared memory: the staged slab of each warp), at most one per pair.
+template <typename T>
+cudaError_t slab_grid(int N, size_t& smem, int& warps) {
+    auto kernel = sw_slab_kernel<T, SLAB_KMAX>;
+    smem = (size_t)WARPS * NCOL * 32 * SLAB_KMAX * sizeof(T);
+    int dev, sms, blocks;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WARPS * 32, smem);
+    warps = err == cudaSuccess ? std::min((N + WARPS - 1) / WARPS, std::max(blocks, 1) * sms) * WARPS : 0;
+    return err;
+}
+
+template <typename T>
+cudaError_t launch_slab(const void* q, const void* p, const void* idx, const void* ends, const void* q_len,
+                        const void* p_len, void* best, void* ei, void* ej, void* carry, int N, int Lq, int Lp,
+                        cudaStream_t s) {
+    size_t smem;
+    int warps;
+    cudaError_t err = slab_grid<T>(N, smem, warps);
+    if (err != cudaSuccess) return err;
+    if (carry == nullptr) return cudaErrorInvalidValue;  // the buffer sw_carry_warps asked for
+    if ((err = cudaMemsetAsync(carry, 0, sizeof(int), s)) != cudaSuccess) return err;  // the pair counter
+    sw_slab_kernel<T, SLAB_KMAX><<<warps / WARPS, WARPS * 32, smem, s>>>(
+        static_cast<const int*>(q), static_cast<const T*>(p), static_cast<const int*>(idx),
+        static_cast<const int*>(ends), static_cast<const int*>(q_len), static_cast<const int*>(p_len),
+        static_cast<float*>(best), static_cast<int*>(ei), static_cast<int*>(ej), static_cast<float2*>(carry), N, Lq,
+        Lp);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-// The register-chunk body when `scratch` is NULL (Lp <= 1024), else the
-// strip body over `n_warps` global scratch slots of 2 x ld floats each.
+// Lp > 1024 (the long body): *warps = the warps of its grid; the launch
+// needs a global buffer of 1 + warps * Lq float2 (a pair counter, then each
+// warp's carries). Lp <= 1024: 0.
+extern "C" int sw_carry_warps(int N, int Lq, int Lp, int is_bf16, int* warps) {
+    *warps = 0;
+    if (Lp <= CHUNK_MAX_LP || N <= 0) return 0;
+    size_t smem;
+    const cudaError_t err = is_bf16 ? slab_grid<gt::bf16>(N, smem, *warps) : slab_grid<float>(N, smem, *warps);
+    return static_cast<int>(err);
+}
+
+// The register-chunk body for Lp <= 1024, else the long body, with `carry`
+// the global buffer sw_carry_warps asked for.
 extern "C" int sw_pairs_launch(const void* q, const void* p, const void* idx, const void* ends,
                                const void* q_len, const void* p_len, void* best, void* ei, void* ej,
-                               void* scratch, int N, int Lq, int Lp, int ld, int is_bf16, int n_warps,
-                               void* stream) {
+                               void* carry, int N, int Lq, int Lp, int is_bf16, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if (scratch == nullptr) {
+    if (Lp <= CHUNK_MAX_LP) {
         err = is_bf16 ? launch_chunk_bucket<gt::bf16>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s)
                       : launch_chunk_bucket<float>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
     } else {
-        err = is_bf16 ? launch<gt::bf16>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s)
-                      : launch<float>(q, p, idx, ends, q_len, p_len, best, ei, ej, scratch, N, Lq, Lp, ld, n_warps, s);
+        err = is_bf16 ? launch_slab<gt::bf16>(q, p, idx, ends, q_len, p_len, best, ei, ej, carry, N, Lq, Lp, s)
+                      : launch_slab<float>(q, p, idx, ends, q_len, p_len, best, ei, ej, carry, N, Lq, Lp, s);
     }
     return static_cast<int>(err);
 }

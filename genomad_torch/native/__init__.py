@@ -1,9 +1,11 @@
 """Native (C++) host-side components.
 
 A copy of ``genomad_tpu/native`` with one change: the shared library is
-compiled on first use with g++ (-O3 -march=native) into the port's
-gitignored ``genomad_torch/build/``, not next to the source, and the build
-is atomic (each process compiles to a private file and renames it), so
+compiled on first use with g++ (-O3 -march=native) into the port's build
+dir (``genomad_torch/build/``, gitignored, or the user cache when the
+installed package cannot be written: ``genomad_torch.build_dir``), not
+next to the source, under a name that stamps the source, and the build is
+atomic (each process compiles to a private file and renames it), so
 concurrent first uses never load a half-written library. Every native entry
 point has a pure numpy fallback in genomad_torch.ops, so the package works
 without a toolchain; the native path is selected automatically when
@@ -14,20 +16,28 @@ library served.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from pathlib import Path
 
 import numpy as np
 
+from genomad_torch.build_dir import build_dir
+
 _DIR = Path(__file__).parent
-_LIB_PATH = _DIR.parent / "build" / "libgenomad_native.so"
+_SOURCES = sorted(_DIR.glob("*.cpp"))
+# named by the sources' sizes and times (read without opening them): an
+# edited or reinstalled source builds anew, and versions that share the
+# user cache never load each other's library
+_STAMP = hashlib.sha256(repr([(p.name, p.stat().st_size, p.stat().st_mtime_ns) for p in _SOURCES]).encode())
+_LIB_PATH = build_dir() / f"libgenomad_native-{_STAMP.hexdigest()[:16]}.so"
 _lib = None
 _lib_failed = False
 
 
 def _build() -> bool:
-    sources = [str(_DIR / "prefilter.cpp")]
+    sources = [str(p) for p in _SOURCES]
     _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
@@ -48,8 +58,7 @@ def get_library():
     global _lib, _lib_failed
     if _lib is not None or _lib_failed:
         return _lib
-    newest_src = max(p.stat().st_mtime for p in _DIR.glob("*.cpp"))
-    if not _LIB_PATH.exists() or _LIB_PATH.stat().st_mtime < newest_src:
+    if not _LIB_PATH.exists():
         if not _build():
             _lib_failed = True
             return None

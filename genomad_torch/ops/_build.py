@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``genomad_torch/csrc``).
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
-use by ``nvcc`` into ``genomad_torch/build/lib<name>-<hash>.so`` (the hash
-covers the source and the flags, so an edited source is rebuilt), then
-loaded with ``ctypes``. Nothing here includes PyTorch's headers: a build
+use by ``nvcc`` into ``<build dir>/lib<name>-<hash>.so`` (the hash covers
+the sources and the flags, so an edited source is rebuilt), then loaded with
+``ctypes``. The build dir is ``genomad_torch/build/``, or the user cache
+when the installed package cannot be written (``genomad_torch.build_dir``). Nothing here includes PyTorch's headers: a build
 takes seconds. Pointers cross as ``c_void_p`` and the stream is PyTorch's
 current stream; every entry point returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception.
@@ -25,8 +26,10 @@ from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
+from genomad_torch.build_dir import PACKAGE_DIR, build_dir
+
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -8,7 +8,8 @@ in ``genomad_torch/csrc/sw.cu`` (see the note at its top). The wrapper
 launches it for CUDA tensors (or raises) and takes the plain version only
 for tensors on the CPU. ``sw_pairs.launches`` counts kernel launches;
 ``sw_pairs.forward_launches`` and ``sw_pairs.reverse_launches`` split them
-by pass.
+by pass, and ``sw_pairs.long_launches`` counts those of the long body
+(profile buckets above 1,024 columns).
 
 The function (gap open 11, extend 1; a gap of length g costs 11 + (g-1)):
 for each pair, the best local-alignment score of the query row against the
@@ -20,6 +21,8 @@ the first column of the maximum wins. A pair with no positive cell gives
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -33,14 +36,14 @@ GAP_EXTEND = 1.0
 N_COLS = 21  # 20 residues + the pad/unknown column
 PAD_CODE = 20
 
-# up to this bucket length the kernel keeps a pair's profile in shared
-# memory and its H/F rows in registers; longer buckets use a global scratch
-_SMEM_MAX_LP = 1024
-_SCRATCH_BYTES = 1 << 28  # cap of the global scratch (longer buckets)
-_WARPS_PER_BLOCK = 2  # WARPS in csrc/sw.cu
+# longer profile buckets take the kernel's long body (CHUNK_MAX_LP in
+# csrc/sw.cu): column slabs with two floats of carries per row between
+# them, in a buffer of the grid's size that the wrapper allocates
+_CHUNK_MAX_LP = 1024
 
 _SIGNATURES = {
-    "sw_pairs_launch": [_build.P] * 10 + [_build.I] * 6 + [_build.P],
+    "sw_carry_warps": [_build.I] * 4 + [_build.P],
+    "sw_pairs_launch": [_build.P] * 10 + [_build.I] * 4 + [_build.P],
 }
 
 
@@ -150,24 +153,25 @@ def sw_pairs(all_q, all_p, idx, ends=None, lengths=None):
     if N == 0:
         return best, end_i, end_j
     Lq, Lp = all_q.shape[1], all_p.shape[1]
-    ld = -(-max(Lp, 1) // 32) * 32  # columns per row carry, whole strips of 32
-    scratch = None
-    n_warps = 0
-    if Lp > _SMEM_MAX_LP:
-        n_warps = int(min(N, 2048, max(132, _SCRATCH_BYTES // (8 * ld))))
-        n_warps += n_warps % _WARPS_PER_BLOCK  # whole blocks
-        scratch = torch.empty(n_warps * 2 * ld, dtype=torch.float32, device=dev)
+    is_bf16 = int(all_p.dtype == torch.bfloat16)
     lib = _build.load("sw", _SIGNATURES)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
+        carry = None
+        if Lp > _CHUNK_MAX_LP:  # the long body's pair counter and each of its warps' row carries
+            warps = ctypes.c_int(0)
+            _build.check(lib.sw_carry_warps(N, Lq, Lp, is_bf16, ctypes.byref(warps)), "sw_pairs")
+            carry = torch.empty((1 + warps.value * Lq, 2), dtype=torch.float32, device=dev)
         err = lib.sw_pairs_launch(
             all_q.data_ptr(), all_p.data_ptr(), idx.data_ptr(), ptr(ends),
             ptr(lengths[0] if lengths is not None else None), ptr(lengths[1] if lengths is not None else None),
-            best.data_ptr(), end_i.data_ptr(), end_j.data_ptr(), ptr(scratch),
-            N, Lq, Lp, ld, int(all_p.dtype == torch.bfloat16), n_warps, _build.stream_ptr(dev),
+            best.data_ptr(), end_i.data_ptr(), end_j.data_ptr(), ptr(carry),
+            N, Lq, Lp, is_bf16, _build.stream_ptr(dev),
         )
     _build.check(err, "sw_pairs")
     sw_pairs.launches += 1
+    if Lp > _CHUNK_MAX_LP:
+        sw_pairs.long_launches += 1
     if ends is None:
         sw_pairs.forward_launches += 1
     else:
@@ -178,6 +182,7 @@ def sw_pairs(all_q, all_p, idx, ends=None, lengths=None):
 sw_pairs.launches = 0
 sw_pairs.forward_launches = 0
 sw_pairs.reverse_launches = 0
+sw_pairs.long_launches = 0
 
 
 def sw_align(queries: np.ndarray, profiles: np.ndarray, compute_starts: bool = False, device=None):

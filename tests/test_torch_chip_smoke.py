@@ -1,6 +1,9 @@
 """chip_smoke.py's phase selection (``--only``), on the CPU: the script's
 phases run only on the card."""
 
+import sys
+
+import numpy as np
 import pytest
 import torch
 
@@ -39,3 +42,30 @@ def test_without_a_card_main_fails_before_any_phase(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main(["--only", "kernels"]) == 1
     assert capsys.readouterr().out == ""
+
+
+def test_sw_times_names_a_tree_and_needs_a_card(monkeypatch, capsys):
+    """``--sw-times TREE`` (K1's timed cases with TREE's genomad_torch, for
+    turns between two checkouts) fails without a card before it imports
+    anything of TREE."""
+    assert chip_smoke.parse_args(["--sw-times", "parent"]).sw_times == "parent"
+    assert chip_smoke.parse_args([]).sw_times is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = list(sys.path)
+    assert chip_smoke.main(["--sw-times", "parent"]) == 1
+    assert sys.path == path
+    assert capsys.readouterr().out == ""
+
+
+def test_sw_bucket_pairs_takes_a_query_bound_of_its_own():
+    """Queries of the 256 bucket against the 4096 profile bucket of the
+    long-profile recipe: every query length in (128, 256], and the planted
+    third windows of their profile's consensus."""
+    from genomad_torch.ops.profiledb import ProfileDB
+
+    db = ProfileDB.synthetic(seed=5, n_profiles=30, min_len=1025, max_len=3000, integral=True)
+    all_q, all_p, idx, (q_len, p_len) = chip_smoke.sw_bucket_pairs(db, 4096, 24, np.random.default_rng(0), torch.device("cpu"), Lq_bound=256)
+    assert all_q.shape == (24, 256) and all_p.shape[1] == 4096
+    assert bool(((q_len > 128) & (q_len <= 256)).all())
+    assert bool((p_len[idx[1].long()] > 1024).all())
+    assert bool((all_q == 20).sum(1).eq(256 - q_len).all())  # code 20 past each length, nowhere before

@@ -2,7 +2,8 @@
 the CPU, K1 through its plain version) returns the same hit table as the
 JAX engine's ``search`` on synthetic profile DBs: the stop rule firing, the
 profile-coverage gate, the gate's search space, both scheduling modes, the
-all-pairs path, the 768/1024 length buckets and the length limit."""
+all-pairs path, the 768/1024 length buckets, a tail of profiles longer
+than 1,024 columns and the length limit."""
 
 import math
 
@@ -194,6 +195,35 @@ def test_search_long_buckets_equal_jax():
     ref, got = _both(qnames, qseqs, db)
     assert got == ref
     assert [got[f"g_{qi}"][0] for qi in range(3)] == ["p2", "p3", "p4"]
+
+
+def test_search_long_profile_tail_equals_jax():
+    """A DB with a tail of 1,025-1,500-column profiles (the 4096 bucket,
+    K1's long body on the card): windows of a long profile's consensus that
+    end past column 1,024, mutated short consensus sequences and noise. The
+    queries and the short profiles all lie in the 384 bucket, which keeps
+    JAX's compiles to two bucket pairs."""
+    rng = np.random.default_rng(37)
+    short = ProfileDB.synthetic(seed=12, n_profiles=40, min_len=260, max_len=380, integral=True)
+    long = ProfileDB.synthetic(seed=13, n_profiles=6, min_len=1025, max_len=1500, integral=True)
+    pssms = [short.profile(i) for i in range(40)] + [long.profile(i) for i in range(6)]
+    db = ProfileDB.from_profiles([f"p{i}" for i in range(len(pssms))], pssms)
+    names, seqs, want = [], [], {}
+    for k in range(6):
+        n = int(rng.integers(300, 380))
+        start = int(rng.integers(1024 - n + 60, int(db.lengths[40 + k]) - n + 1))
+        names.append(f"window_{k}")
+        seqs.append(_seq(_mutated(rng, db.profile(40 + k).argmax(1)[start : start + n], 0.1)))
+        want[names[-1]] = f"p{40 + k}"
+    for k in (3, 17, 29):
+        names.append(f"short_{k}")
+        seqs.append(_seq(_mutated(rng, db.profile(k).argmax(1), 0.1)))
+        want[names[-1]] = f"p{k}"
+    names.append("noise")
+    seqs.append(_seq(rng.integers(0, N_AA, 350)))
+    ref, got = _both(names, seqs, db)
+    assert got == ref
+    assert {q: got[q][0] for q in want} == want
 
 
 def test_search_length_over_limit_raises_as_jax():

@@ -90,9 +90,12 @@ def test_sw_edge_cases_match_jax(name):
     either side of a lane's chunk and in two rows, real lengths 1, 31, 33
     and 257, fewer real columns than lanes, an all-negative profile, a
     reverse pass, and real lengths that take every chunk width of the 512,
-    768 and 1024 buckets): the plain version against ``_sw_forward`` on the gathered
-    operands, integral, bit-equal; chip_smoke.py's sw phase holds the kernel
-    against the plain version on the same inputs."""
+    768 and 1024 buckets) and of its long body's slabs (equal maxima on
+    either side of a slab edge and in two slabs, a gap across one, real
+    lengths 1,025-3,001 and a 5,000-column profile): the plain version
+    against ``_sw_forward`` on the gathered operands, integral, bit-equal;
+    chip_smoke.py's sw phase holds the kernel against the plain version on
+    the same inputs."""
     case = chip_smoke.sw_edge_cases()[name]
     all_q, all_p, idx, _ = case["bucket"]
     q, p = all_q[idx[0]], all_p[idx[1]]
@@ -115,6 +118,98 @@ def test_sw_edge_cases_match_jax(name):
         for g, r in zip(rev, _jax_forward(rq, rp)):
             np.testing.assert_array_equal(g.numpy(), r)
         np.testing.assert_array_equal(rev[0].numpy(), ref[0])  # the same alignment rescored
+
+
+def _slab_mirror(q, p, nrows, ncols, slab):
+    """K1's long body in numpy for one pair: the columns in slabs of
+    ``slab`` (32 lanes of k columns each, k rounded up as the kernel's
+    chunk_step does), every row run per slab with the two per-row carries
+    (the previous slab's H at its last column in the row above; the max of t
+    over the earlier slabs' columns), each lane's best by the strict rule
+    and the first column of its chunk, and the slabs' lane bests merged by
+    the highest value, then the lowest row, then the lowest column. f32 in
+    the kernel's expression order. Returns (best, end_i, end_j)."""
+    f32 = np.float32
+    neg, kmax = f32(-np.inf), slab // 32
+    step = 1 if kmax <= 12 else kmax // 8
+    carry_h = np.zeros(nrows + 1, f32)  # carry_h[i]: H of row i - 1 at the previous slab's last column
+    carry_t = np.full(nrows, neg, f32)
+    best = (f32(0), 0, 0)
+    for c0 in range(0, ncols, slab):
+        k = -(-min(slab, ncols - c0) // 32)
+        k = -(-k // step) * step
+        cols = c0 + np.arange(32 * k)
+        real = cols < ncols
+        colf = np.where(real, cols, -np.inf).astype(f32)
+        colm1 = np.where(real, cols.astype(f32) - f32(1), np.inf).astype(f32)
+        scores = np.full((32 * k, 21), neg, f32)
+        scores[real] = p[cols[real]]
+        H, F = np.zeros(32 * k, f32), np.full(32 * k, neg, f32)
+        lane_best = np.zeros(32, f32)
+        lane_i, lane_c = np.zeros(32, np.int64), np.zeros(32, np.int64)
+        next_h, next_t = carry_h.copy(), carry_t.copy()
+        for i in range(nrows):
+            diag = np.concatenate([[carry_h[i]], H[:-1]]).astype(f32)
+            F = np.maximum(H - f32(11), F - f32(1))
+            h0 = np.maximum(np.maximum(diag + scores[:, q[i]], F), f32(0))
+            t = (h0 - f32(11)) + colf
+            m = np.maximum.accumulate(np.concatenate([[carry_t[i]], t[:-1]]).astype(f32))
+            H = np.maximum(h0, m - colm1)
+            next_h[i + 1] = H[-1]
+            next_t[i] = max(carry_t[i], t.max())
+            chunks = H.reshape(32, k)
+            rmax = np.maximum(chunks.max(1), f32(0))
+            up = rmax > lane_best
+            lane_best = np.where(up, rmax, lane_best)
+            lane_i = np.where(up, i, lane_i)
+            lane_c = np.where(up, chunks.argmax(1), lane_c)
+        carry_h, carry_t = next_h, next_t
+        for lane in range(32):
+            cand = (lane_best[lane], int(lane_i[lane]), c0 + lane * k + int(lane_c[lane]))
+            if cand[0] > best[0] or (cand[0] == best[0] and cand[1:] < best[1:]):
+                best = cand
+    return best
+
+
+@pytest.mark.parametrize("slab", [64, 512, 1024])
+def test_slab_mirror_matches_plain(rng, slab):
+    """The long body's slab decomposition (per-row carries, per-lane bests
+    merged across slabs by the full rule) mirrored in numpy, held bit-equal
+    to ``sw_forward_plain`` on float and integral PSSMs, planted matches
+    that cross slab edges, equal maxima in two slabs, real lengths that end
+    one column into a slab, and reversed operands; slab width 64 puts many
+    edges into a small pair, 512 is the kernel's, 1,024 its chunk body's
+    widest."""
+    Lp = 3 * slab + 40
+    Lq = 90 if slab == 64 else 40
+    cases = []
+    for kind in range(6):
+        ncols = {0: Lp, 1: slab + 1, 2: 2 * slab, 3: Lp - 7, 4: slab - 3, 5: Lp}[kind]
+        x = rng.normal(-2.0, 0.9, (Lp, 21)).astype(np.float32)
+        x[:, 20] = 0
+        cons = rng.integers(0, N_AA, Lp)
+        x[np.arange(Lp), cons] += 7
+        if kind % 2:
+            x = np.round(x)
+        x[ncols:] = 0
+        start = max(0, min(ncols, slab) - Lq // 2)  # a match crossing the first slab edge
+        q = np.full(Lq, 20, np.int32)
+        seg = cons[start : start + Lq]
+        q[: len(seg)] = seg
+        q[3::7] = rng.integers(0, N_AA, len(q[3::7]))
+        if kind == 5:  # equal maxima in two slabs, the later slab's in the earlier row
+            x[:, :20] = -4.0
+            q = (np.arange(Lq) % 20).astype(np.int32)
+            x[10, q[8]] = x[slab + 5, q[3]] = 9.0
+        cases.append((q, x, Lq, ncols))
+    cases.append((cases[0][0][::-1].copy(), cases[0][1][::-1].copy(), Lq, Lp))  # reversed operands
+    for q, x, nrows, ncols in cases:
+        ref = sw.sw_forward_plain(_t(q[None]), _t(x[None]))
+        got = _slab_mirror(q, x, nrows, ncols, slab)
+        assert (got[0].dtype, got[0]) == (np.float32, ref[0].numpy()[0]), (ncols, got, ref)
+        assert got[1:] == (int(ref[1][0]), int(ref[2][0]))
+    if slab == 64:  # the planted tie: the later slab's cell in row 3 wins
+        assert _slab_mirror(*cases[5][:2], Lq, Lp, slab) == (np.float32(9.0), 3, slab + 5)
 
 
 def test_sw_plain_matches_pallas_interpret(rng):
