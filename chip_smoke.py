@@ -1025,8 +1025,8 @@ def sw_kernel_phase(results: dict, db) -> None:
     ))
 
     # one 1024 x 1024 pair, one 4096-bucket pair and one 4,500-residue query
-    # of the 32768 query bucket (the long body's carries in the global
-    # buffer) against a 1,100-column profile, f32 and bf16
+    # of the 32768 query bucket (32,768 rows of carries per warp of the long
+    # body) against a 1,100-column profile, f32 and bf16
     for Lq, Lp, lq, lp in ((1024, 1024, 1024, 1024), (384, 4096, 384, 3000), (32768, 4096, 4500, 1100)):
         cons = rng.integers(0, 20, lp)
         pssm = np.round(rng.normal(-2.0, 0.7, (lp, 20)))
@@ -1324,10 +1324,9 @@ def sw_edge_cases() -> dict:
     horizontal gap from column 1,014 to 1,034 that the best alignment needs
     (its E crosses the slab edge in the carry); real lengths 1,025, 2,048
     and 3,001 against queries of up to 3,001 residues (consensus matches
-    across the slabs; 1,025 ends at the second slab's only column), forward
-    and reverse; a 5,000-column profile of the 32,768 bucket matched
-    from column 3,900 on. In f32 the 4,096-row cases keep their carries in
-    the global buffer, in bf16 in shared memory."""
+    across the slabs; 1,025 ends at its last slab's only column), forward
+    and reverse; and a 5,000-column profile of the 32,768 bucket matched
+    from column 3,900 on."""
     rng = np.random.default_rng(SEED + 7)
     cases = {}
 

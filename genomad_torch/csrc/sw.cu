@@ -506,7 +506,7 @@ cudaError_t launch_slab(const void* q, const void* p, const void* idx, const voi
 // Lp > 1024 (the long body): *warps = the warps of its grid; the launch
 // needs a global buffer of 1 + warps * Lq float2 (a pair counter, then each
 // warp's carries). Lp <= 1024: 0.
-extern "C" int sw_carry_warps(int N, int Lq, int Lp, int is_bf16, int* warps) {
+extern "C" int sw_carry_warps(int N, int Lp, int is_bf16, int* warps) {
     *warps = 0;
     if (Lp <= CHUNK_MAX_LP || N <= 0) return 0;
     size_t smem;

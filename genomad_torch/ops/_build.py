@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use by ``nvcc`` into ``<build dir>/lib<name>-<hash>.so`` (the hash covers
 the sources and the flags, so an edited source is rebuilt), then loaded with
 ``ctypes``. The build dir is ``genomad_torch/build/``, or the user cache
-when the installed package cannot be written (``genomad_torch.build_dir``). Nothing here includes PyTorch's headers: a build
-takes seconds. Pointers cross as ``c_void_p`` and the stream is PyTorch's
+when the installed package cannot be written (``genomad_torch.build_dir``).
+Nothing here includes PyTorch's headers: a build takes seconds. Pointers cross as ``c_void_p`` and the stream is PyTorch's
 current stream; every entry point returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception.
 

@@ -42,7 +42,7 @@ PAD_CODE = 20
 _CHUNK_MAX_LP = 1024
 
 _SIGNATURES = {
-    "sw_carry_warps": [_build.I] * 4 + [_build.P],
+    "sw_carry_warps": [_build.I] * 3 + [_build.P],
     "sw_pairs_launch": [_build.P] * 10 + [_build.I] * 4 + [_build.P],
 }
 
@@ -160,7 +160,7 @@ def sw_pairs(all_q, all_p, idx, ends=None, lengths=None):
         carry = None
         if Lp > _CHUNK_MAX_LP:  # the long body's pair counter and each of its warps' row carries
             warps = ctypes.c_int(0)
-            _build.check(lib.sw_carry_warps(N, Lq, Lp, is_bf16, ctypes.byref(warps)), "sw_pairs")
+            _build.check(lib.sw_carry_warps(N, Lp, is_bf16, ctypes.byref(warps)), "sw_pairs")
             carry = torch.empty((1 + warps.value * Lq, 2), dtype=torch.float32, device=dev)
         err = lib.sw_pairs_launch(
             all_q.data_ptr(), all_p.data_ptr(), idx.data_ptr(), ptr(ends),
