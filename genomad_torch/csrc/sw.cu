@@ -78,7 +78,9 @@
 // body over column slabs. One warp per pair walks its columns in slabs of
 // 512 (KMAX 16), left to right; each slab stages its profile columns as
 // above (with a lane's NCOL loads in flight, since a slab is staged once
-// per sweep of the rows) and runs every row with H and F in registers.
+// per sweep of the rows) and runs every row with H and F in registers
+// (`slab_pair`, a copy of `chunk_pair` with the carries: made a variant of
+// the one template, the carries changed the chunk body's machine code).
 // Between slabs a row carries two floats, which lane 0 reads a row ahead
 // and writes after the row: the previous slab's H at its last column in
 // the row above (lane 0's diagonal) and the running max of t over every
@@ -173,7 +175,148 @@ __device__ __forceinline__ PairView pair_view(const int* __restrict__ q, const i
 }
 
 // ---------------------------------------------------------------------------
-// Register-chunk body (Lp <= 1024) and the slabs of the long body
+// Register-chunk body (Lp <= 1024)
+// ---------------------------------------------------------------------------
+
+// One pair with K columns per lane (32 K >= ncols): stages the profile, runs
+// the rows, and leaves the lane's best (value, row, column).
+template <typename T, int K>
+__device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+                                           int lane, float& best, int& best_i, int& best_j) {
+    constexpr int LDK = 32 * K;  // staged elements per query code
+    __syncwarp();  // the previous pair has read its profile
+    for (int e = lane; e < LDK * NCOL; e += 32) {
+        const int j = e / NCOL;
+        const int code = e - j * NCOL;
+        T v = gt::from_float<T>(NEG_INF);
+        if (j < pv.ncols) {
+            const int r = pv.prof_row(j);
+            v = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
+        }
+        Ps[code * LDK + (j % K) * 32 + j / K] = v;
+    }
+    __syncwarp();
+
+    const int j0 = lane * K;
+    float H[K], Fp[K], colf[K], colm1[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+        const bool real = j0 + c < pv.ncols;
+        H[c] = 0.f;
+        Fp[c] = NEG_INF;
+        colf[c] = real ? (float)(j0 + c) : NEG_INF;                          // masked: t = -inf
+        colm1[c] = real ? __fsub_rn((float)(j0 + c), GAP_EXTEND) : -NEG_INF;  // masked: e = -inf
+    }
+    float lbest = 0.f;
+    int li = 0, lc = 0;
+    int code = pv.query_code(0);
+    for (int i = 0; i < pv.nrows; ++i) {
+        const int next = i + 1 < pv.nrows ? pv.query_code(i + 1) : PAD;
+        const T* s = Ps + code * LDK + lane;
+        const float up = __shfl_up_sync(FULL, H[K - 1], 1);
+        float diag = lane == 0 ? 0.f : up;
+        float P[K];  // running max of t over the chunk, through column c
+        float run = NEG_INF;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+            const float hp = H[c];
+            const float f = fmaxf(__fsub_rn(hp, GAP_OPEN), __fsub_rn(Fp[c], GAP_EXTEND));
+            const float h0 = fmaxf(fmaxf(__fadd_rn(diag, gt::to_float(s[c * 32])), f), 0.f);
+            diag = hp;
+            Fp[c] = f;
+            H[c] = h0;
+            run = fmaxf(run, __fadd_rn(__fsub_rn(h0, GAP_OPEN), colf[c]));
+            P[c] = run;
+        }
+        // inclusive scan of the chunk maxima, then shifted: the max of t over
+        // every column of the earlier lanes (lanes below `off` get their own
+        // value back, which leaves the max unchanged)
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) run = fmaxf(run, __shfl_up_sync(FULL, run, off));
+        const float below = __shfl_up_sync(FULL, run, 1);
+        const float ex = lane == 0 ? NEG_INF : below;
+        float rmax = 0.f;
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+            const float m = c == 0 ? ex : fmaxf(ex, P[c - 1]);
+            H[c] = fmaxf(H[c], __fsub_rn(m, colm1[c]));
+            rmax = fmaxf(rmax, H[c]);
+        }
+        if (rmax > lbest) {  // rare after the first rows: find the first column
+            int first = K - 1;
+#pragma unroll
+            for (int c = K - 1; c >= 0; --c) {
+                if (H[c] == rmax) first = c;
+            }
+            lbest = rmax;
+            li = i;
+            lc = first;
+        }
+        code = next;
+    }
+    best = lbest;
+    best_i = li;
+    best_j = j0 + lc;
+}
+
+// Columns per lane are rounded up to a multiple of this step: one body per k
+// up to KMAX = 12, eight bodies above.
+__host__ __device__ constexpr int chunk_step(int kmax) { return kmax <= 12 ? 1 : kmax / 8; }
+
+template <typename T, int K, int KMAX>
+__device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+                                               int lane, float& best, int& best_i, int& best_j) {
+    if constexpr (K >= KMAX) {
+        chunk_pair<T, KMAX>(pv, prow, Ps, lane, best, best_i, best_j);
+    } else {
+        if (k <= K) {
+            chunk_pair<T, K>(pv, prow, Ps, lane, best, best_i, best_j);
+        } else {
+            chunk_dispatch<T, K + chunk_step(KMAX), KMAX>(k, pv, prow, Ps, lane, best, best_i, best_j);
+        }
+    }
+}
+
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(WARPS * 32) sw_chunk_kernel(
+    const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
+    const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
+    float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out, int N, int Lq, int Lp) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int pair = blockIdx.x * WARPS + warp;
+    if (pair >= N) return;
+    T* Ps = reinterpret_cast<T*>(smem_raw) + (size_t)warp * NCOL * 32 * KMAX;
+    const PairView pv = pair_view(q, idx, ends, q_len, p_len, pair, N, Lq, Lp);
+
+    float best = 0.f;
+    int best_i = 0, best_j = 0;
+    if (pv.nrows > 0 && pv.ncols > 0) {
+        const int k = (pv.ncols + 31) >> 5;
+        chunk_dispatch<T, chunk_step(KMAX), KMAX>(k, pv, p + (size_t)pv.pi * Lp * NCOL, Ps, lane, best, best_i, best_j);
+    }
+    // highest value, then the lowest row, then the lowest column
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(FULL, best, off);
+        const int oi = __shfl_xor_sync(FULL, best_i, off);
+        const int oj = __shfl_xor_sync(FULL, best_j, off);
+        if (ov > best || (ov == best && (oi < best_i || (oi == best_i && oj < best_j)))) {
+            best = ov;
+            best_i = oi;
+            best_j = oj;
+        }
+    }
+    if (lane == 0) {
+        best_out[pair] = best;
+        ei_out[pair] = best_i;
+        ej_out[pair] = best_j;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The long body's slabs (Lp > 1024)
 // ---------------------------------------------------------------------------
 
 // Where a slab of the long body lies in its pair: its first column and the
@@ -217,32 +360,20 @@ __device__ __forceinline__ void stage_slab(const PairView& pv, const T* __restri
     }
 }
 
-// One pair (or one slab of it, CARRY) with K columns per lane (32 K >= the
-// columns left): stages the profile, runs the rows, and leaves the lane's
-// best (value, row, column). CARRY = false is the register-chunk body.
-template <typename T, int K, bool CARRY>
-__device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
-                                           int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
+// One slab of a pair: chunk_pair's rows over the slab's columns, each row
+// entered with the previous slab's carries (sl.cin) and its own left for
+// the next slab (sl.cout). A copy of chunk_pair, not a variant of it: a
+// compile-time variant of one template changed the chunk body's machine
+// code (register allocation and order), which stays as it was.
+template <typename T, int K>
+__device__ __forceinline__ void slab_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+                                          int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
     constexpr int LDK = 32 * K;  // staged elements per query code
-    const int c0 = CARRY ? sl.c0 : 0;
-    __syncwarp();  // the previous pair (or slab) has read its profile
-    if constexpr (CARRY) {
-        stage_slab<T, K>(pv, prow, Ps, lane, c0);
-    } else {
-        for (int e = lane; e < LDK * NCOL; e += 32) {
-            const int j = e / NCOL;
-            const int code = e - j * NCOL;
-            T v = gt::from_float<T>(NEG_INF);
-            if (j < pv.ncols) {
-                const int r = pv.prof_row(j);
-                v = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
-            }
-            Ps[code * LDK + (j % K) * 32 + j / K] = v;
-        }
-    }
+    __syncwarp();  // the previous pair or slab has read its profile
+    stage_slab<T, K>(pv, prow, Ps, lane, sl.c0);
     __syncwarp();
 
-    const int j0 = c0 + lane * K;
+    const int j0 = sl.c0 + lane * K;
     float H[K], Fp[K], colf[K], colm1[K];
 #pragma unroll
     for (int c = 0; c < K; ++c) {
@@ -255,22 +386,18 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
     float lbest = 0.f;
     int li = 0, lc = 0;
     int code = pv.query_code(0);
-    // lane 0's carries of the row (0, -inf on the other lanes and in slab 0)
+    // lane 0's carries of the row; (0, -inf) on the other lanes and in slab 0
     float2 cur = make_float2(0.f, NEG_INF);
-    if constexpr (CARRY) {
-        if (sl.cin && lane == 0) cur = sl.carry[0];
-    }
+    if (sl.cin && lane == 0) cur = sl.carry[0];
     for (int i = 0; i < pv.nrows; ++i) {
         const int next = i + 1 < pv.nrows ? pv.query_code(i + 1) : PAD;
         float2 nxt = make_float2(0.f, NEG_INF);
-        if constexpr (CARRY) {
-            if (sl.cin && lane == 0 && i + 1 < pv.nrows) nxt = sl.carry[i + 1];  // a row ahead
-        }
+        if (sl.cin && lane == 0 && i + 1 < pv.nrows) nxt = sl.carry[i + 1];  // a row ahead
         const T* s = Ps + code * LDK + lane;
-        // CARRY rotates: lane 0 gets lane 31's last H of the row above, the
-        // carry of row i - 1 for the next slab
-        const float up = CARRY ? __shfl_sync(FULL, H[K - 1], (lane + 31) & 31) : __shfl_up_sync(FULL, H[K - 1], 1);
-        float diag = lane == 0 ? (CARRY ? cur.x : 0.f) : up;
+        // rotated: lane 0 gets lane 31's last H of the row above, the carry
+        // of row i - 1 for the next slab
+        const float up = __shfl_sync(FULL, H[K - 1], (lane + 31) & 31);
+        float diag = lane == 0 ? cur.x : up;
         float P[K];  // running max of t over the chunk, through column c
         float run = NEG_INF;
 #pragma unroll
@@ -284,18 +411,13 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
             run = fmaxf(run, __fadd_rn(__fsub_rn(h0, GAP_OPEN), colf[c]));
             P[c] = run;
         }
-        if constexpr (CARRY) run = fmaxf(run, cur.y);  // the earlier slabs' t enter the scan at lane 0
-        // inclusive scan of the chunk maxima, then shifted: the max of t over
-        // every column of the earlier lanes (lanes below `off` get their own
-        // value back, which leaves the max unchanged)
+        run = fmaxf(run, cur.y);  // the earlier slabs' t enter the scan at lane 0
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) run = fmaxf(run, __shfl_up_sync(FULL, run, off));
-        // CARRY rotates: lane 0 gets the max of t through the slab's last column
-        const float below = CARRY ? __shfl_sync(FULL, run, (lane + 31) & 31) : __shfl_up_sync(FULL, run, 1);
-        const float ex = lane == 0 ? (CARRY ? cur.y : NEG_INF) : below;
-        if constexpr (CARRY) {
-            if (sl.cout && lane == 0) sl.carry[i] = make_float2(up, below);  // after its read: same lane
-        }
+        // rotated: lane 0 gets the max of t through the slab's last column
+        const float below = __shfl_sync(FULL, run, (lane + 31) & 31);
+        const float ex = lane == 0 ? cur.y : below;
+        if (sl.cout && lane == 0) sl.carry[i] = make_float2(up, below);  // after its read: same lane
         float rmax = 0.f;
 #pragma unroll
         for (int c = 0; c < K; ++c) {
@@ -321,20 +443,16 @@ __device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restri
     best_j = j0 + lc;
 }
 
-// Columns per lane are rounded up to a multiple of this step: one body per k
-// up to KMAX = 12, eight bodies above.
-__host__ __device__ constexpr int chunk_step(int kmax) { return kmax <= 12 ? 1 : kmax / 8; }
-
-template <typename T, int K, int KMAX, bool CARRY>
-__device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
-                                               int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
+template <typename T, int K, int KMAX>
+__device__ __forceinline__ void slab_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+                                              int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
     if constexpr (K >= KMAX) {
-        chunk_pair<T, KMAX, CARRY>(pv, prow, Ps, lane, sl, best, best_i, best_j);
+        slab_pair<T, KMAX>(pv, prow, Ps, lane, sl, best, best_i, best_j);
     } else {
         if (k <= K) {
-            chunk_pair<T, K, CARRY>(pv, prow, Ps, lane, sl, best, best_i, best_j);
+            slab_pair<T, K>(pv, prow, Ps, lane, sl, best, best_i, best_j);
         } else {
-            chunk_dispatch<T, K + chunk_step(KMAX), KMAX, CARRY>(k, pv, prow, Ps, lane, sl, best, best_i, best_j);
+            slab_dispatch<T, K + chunk_step(KMAX), KMAX>(k, pv, prow, Ps, lane, sl, best, best_i, best_j);
         }
     }
 }
@@ -346,45 +464,6 @@ __device__ __forceinline__ void take_best(float v, int i, int j, float& best, in
         best_i = i;
         best_j = j;
     }
-}
-
-// The warp's best cell by take_best's rule; lane 0 writes it.
-__device__ __forceinline__ void write_best(float best, int best_i, int best_j, int lane, int pair,
-                                           float* __restrict__ best_out, int* __restrict__ ei_out,
-                                           int* __restrict__ ej_out) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        take_best(__shfl_xor_sync(FULL, best, off), __shfl_xor_sync(FULL, best_i, off),
-                  __shfl_xor_sync(FULL, best_j, off), best, best_i, best_j);
-    }
-    if (lane == 0) {
-        best_out[pair] = best;
-        ei_out[pair] = best_i;
-        ej_out[pair] = best_j;
-    }
-}
-
-template <typename T, int KMAX>
-__global__ void __launch_bounds__(WARPS * 32) sw_chunk_kernel(
-    const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
-    const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
-    float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out, int N, int Lq, int Lp) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int pair = blockIdx.x * WARPS + warp;
-    if (pair >= N) return;
-    T* Ps = reinterpret_cast<T*>(smem_raw) + (size_t)warp * NCOL * 32 * KMAX;
-    const PairView pv = pair_view(q, idx, ends, q_len, p_len, pair, N, Lq, Lp);
-
-    float best = 0.f;
-    int best_i = 0, best_j = 0;
-    if (pv.nrows > 0 && pv.ncols > 0) {
-        const int k = (pv.ncols + 31) >> 5;
-        chunk_dispatch<T, chunk_step(KMAX), KMAX, false>(k, pv, p + (size_t)pv.pi * Lp * NCOL, Ps, lane,
-                                                         Slab{0, nullptr, false, false}, best, best_i, best_j);
-    }
-    write_best(best, best_i, best_j, lane, pair, best_out, ei_out, ej_out);
 }
 
 // The long body (Lp > 1024): a pair's columns in slabs of SLAB = 32 KMAX,
@@ -422,14 +501,23 @@ __global__ void __launch_bounds__(WARPS * 32) sw_slab_kernel(
             float b;
             int bi, bj;
             if (sl.cout) {
-                chunk_pair<T, KMAX, true>(pv, prow, Ps, lane, sl, b, bi, bj);
+                slab_pair<T, KMAX>(pv, prow, Ps, lane, sl, b, bi, bj);
             } else {
                 const int k = (pv.ncols - sl.c0 + 31) >> 5;
-                chunk_dispatch<T, chunk_step(KMAX), KMAX, true>(k, pv, prow, Ps, lane, sl, b, bi, bj);
+                slab_dispatch<T, chunk_step(KMAX), KMAX>(k, pv, prow, Ps, lane, sl, b, bi, bj);
             }
             take_best(b, bi, bj, best, best_i, best_j);
         }
-        write_best(best, best_i, best_j, lane, pair, best_out, ei_out, ej_out);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            take_best(__shfl_xor_sync(FULL, best, off), __shfl_xor_sync(FULL, best_i, off),
+                      __shfl_xor_sync(FULL, best_j, off), best, best_i, best_j);
+        }
+        if (lane == 0) {
+            best_out[pair] = best;
+            ei_out[pair] = best_i;
+            ej_out[pair] = best_j;
+        }
     }
 }
 
