@@ -65,7 +65,7 @@ def test_build_dir_falls_back_to_the_user_cache_when_read_only(tmp_path, monkeyp
         pkg_built.chmod(stat.S_IRWXU)
 
 
-def test_builders_use_the_build_dir():
+def test_kernel_and_prefilter_builds_use_the_build_dir():
     """The kernels and the prefilter build where build_dir says (the
     checkout's package is writable: its own build/)."""
     from genomad_torch import native
@@ -77,9 +77,9 @@ def test_builders_use_the_build_dir():
 
 
 @pytest.mark.parametrize("module", ["ops._build", "native"])
-def test_builders_follow_a_read_only_install(tmp_path, module):
-    """In a fresh process whose package directory reports read-only, both
-    builders resolve to the cache directory."""
+def test_builds_follow_a_read_only_install(tmp_path, module):
+    """In a fresh process whose package directory reports read-only, the
+    kernels and the prefilter both build into the cache directory."""
     code = (
         "import os, sys; from pathlib import Path; import genomad_torch.build_dir as bd; "
         "bd._writable = lambda p: False; "
