@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py                  # from the root of a checkout, one card
     python3 chip_smoke.py --only kernels   # device, build and the kernel phase only
-    python3 chip_smoke.py --sw-times TREE  # K1's timed cases with TREE's genomad_torch
 
 Phases (any failure makes the script exit non-zero without the final line).
 ``--only PHASE[,PHASE]`` runs device and build, the named phases and those
@@ -1078,7 +1077,11 @@ def sw_kernel_phase(results: dict, db) -> None:
     log(f"# sw long: cases drawn and checked in {time.perf_counter() - t0:.1f} s")
 
     timing = sw_chunk_timing(timed)
+    for L in (256, 384):
+        timing[f"plain_{L}_ms"] = cuda_time(lambda: sw.sw_pairs_plain(*timed[L]["args"]), iters=3, warmup=1)
     long_timing = sw_long_timing(long_timed)
+    long_timing["plain_256x4096_ms"] = cuda_time(lambda: sw.sw_pairs_plain(*long_timed["256x4096"]["args"]),
+                                                 iters=2, warmup=1)
     results["sw_pairs"] = {
         "name": "sw_pairs",
         "route": "cuda",
@@ -1155,10 +1158,9 @@ def sw_chunk_cases(db, rng, dev) -> dict:
     return timed
 
 
-def sw_chunk_timing(timed: dict, plain: bool = True) -> dict:
+def sw_chunk_timing(timed: dict) -> dict:
     """CUDA-event times at the annotate path's shapes: forward by bucket,
-    reverse and the full bucket at 256, and (``plain``) the plain version
-    at 256 and 384; each with its Gcells/s and bound."""
+    reverse and the full bucket at 256; each with its Gcells/s and bound."""
     from genomad_torch.ops import sw
 
     by_bucket = {}
@@ -1174,12 +1176,8 @@ def sw_chunk_timing(timed: dict, plain: bool = True) -> dict:
     rev_bound = sw_bound(all_q, all_p, idx, *t["lengths"], t["cells_r"])
     full_lengths = tuple(torch.full_like(n, 256) for n in t["lengths"])
     full_bound = sw_bound(all_q, all_p, idx, *full_lengths, SW_PAIRS * 256 * 256)
-    out = {"forward_by_bucket": by_bucket}
-    if plain:
-        for L in (256, 384):
-            out[f"plain_{L}_ms"] = cuda_time(lambda: sw.sw_pairs_plain(*timed[L]["args"]), iters=3, warmup=1)
     return {
-        **out,
+        "forward_by_bucket": by_bucket,
         "forward_256_full_bucket_ms": full_ms, "full_bucket_gcells_s": SW_PAIRS * 256 * 256 / full_ms / 1e6,
         "forward_256_full_bucket_bound_ms": full_bound[0], "forward_256_full_bucket_bound_by": full_bound[1],
         "reverse_256_ms": rev_ms, "reverse_256_gcells_s": t["cells_r"] / rev_ms / 1e6,
@@ -1209,10 +1207,10 @@ def sw_long_cases(rng, dev) -> dict:
     return timed
 
 
-def sw_long_timing(timed: dict, plain: bool = True) -> dict:
+def sw_long_timing(timed: dict) -> dict:
     """CUDA-event times of the long-profile DB's cases (bf16, real lengths)
     and of the reverse pass at 256 x 4096, each with its cells, Gcells/s,
-    bound and x-bound; and (``plain``) the plain version at 256 x 4096."""
+    bound and x-bound."""
     from genomad_torch.ops import sw
 
     def row(ms, cells, args, lengths):
@@ -1227,8 +1225,6 @@ def sw_long_timing(timed: dict, plain: bool = True) -> dict:
     t = timed["256x4096"]
     ms = cuda_time(lambda: sw.sw_pairs(*t["args"], ends=t["ends"], lengths=t["lengths"]), iters=5)
     out["256x4096 reverse"] = {"n": t["n"], **row(ms, t["cells_r"], t["args"], t["lengths"])}
-    if plain:
-        out["plain_256x4096_ms"] = cuda_time(lambda: sw.sw_pairs_plain(*t["args"]), iters=2, warmup=1)
     return out
 
 
@@ -2314,9 +2310,6 @@ REQUIRES = {
 def parse_args(argv: list[str]) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Smoke run of genomad_torch on one NVIDIA GPU.")
     parser.add_argument("--only", metavar="PHASE[,PHASE]", help=f"run only these of {', '.join(PHASES)}")
-    parser.add_argument("--sw-times", metavar="TREE",
-                        help="time K1's cases (no checks) with the genomad_torch of the checkout TREE, "
-                             "for turns between two trees; prints one '# sw times' line")
     return parser.parse_args(argv)
 
 
@@ -2336,43 +2329,12 @@ def select_phases(argv: list[str]) -> tuple[str, ...]:
     return tuple(p for p in PHASES if p in names)
 
 
-def sw_times(tree: str) -> None:
-    """K1's timed cases (sw_chunk_timing, sw_long_timing without the plain
-    version) on the pairs of the sw phase, run by the genomad_torch of the
-    checkout ``tree`` (any version with ``ops.sw.sw_pairs``), and a digest
-    of every case's forward result: two trees timed in turns on one card
-    give equal digests when their kernels agree bit for bit."""
-    import hashlib
-
-    sys.path.insert(0, str(Path(tree).resolve()))
-    import genomad_torch
-    from genomad_torch.ops import _build
-
-    _build.build(("sw",))
-    dev = torch.device("cuda")
-    chunk = sw_chunk_cases(bench_db(SW_DB_PROFILES), np.random.default_rng(SEED + 2), dev)
-    long = sw_long_cases(np.random.default_rng(SEED + 3), dev)
-    digest = hashlib.sha256()
-    for t in (*chunk.values(), *long.values()):
-        for x in t["fwd"]:
-            digest.update(x.cpu().numpy().tobytes())
-    log("# sw times: " + json.dumps({
-        "package": str(Path(genomad_torch.__file__).parent), "card": nvidia_smi(),
-        "chunk": sw_chunk_timing(chunk, plain=False), "long_profile_db": sw_long_timing(long, plain=False),
-        "forward_digest": digest.hexdigest()[:16],
-    }))
-
-
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     phases = select_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.", file=sys.stderr)
         return 1
-    tree = parse_args(argv).sw_times
-    if tree is not None:
-        sw_times(tree)
-        return 0
     from genomad_torch.ops import _build
 
     failures = []

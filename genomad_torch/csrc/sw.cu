@@ -79,11 +79,10 @@
 // 512 (KMAX 16), left to right; each slab stages its profile columns as
 // above (with a lane's NCOL loads in flight, since a slab is staged once
 // per sweep of the rows) and runs every row with H and F in registers
-// (`slab_pair`, a copy of `chunk_pair` with the carries: made a variant of
-// the one template, the carries changed the chunk body's machine code).
-// Between slabs a row carries two floats, which lane 0 reads a row ahead
-// and writes after the row: the previous slab's H at its last column in
-// the row above (lane 0's diagonal) and the running max of t over every
+// (`chunk_pair` with CARRY, a compile-time variant of the chunk body's
+// rows). Between slabs a row carries two floats, which lane 0 reads a row
+// ahead and writes after the row: the previous slab's H at its last column
+// in the row above (lane 0's diagonal) and the running max of t over every
 // earlier column (the scan's start at lane 0). Max is exact, so the slabs
 // are bit-equal to one pass. With the chunk body's two shuffles rotated
 // (lane 0 reads lane 31), lane 0 holds both carries of the next slab at no
@@ -175,148 +174,7 @@ __device__ __forceinline__ PairView pair_view(const int* __restrict__ q, const i
 }
 
 // ---------------------------------------------------------------------------
-// Register-chunk body (Lp <= 1024)
-// ---------------------------------------------------------------------------
-
-// One pair with K columns per lane (32 K >= ncols): stages the profile, runs
-// the rows, and leaves the lane's best (value, row, column).
-template <typename T, int K>
-__device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
-                                           int lane, float& best, int& best_i, int& best_j) {
-    constexpr int LDK = 32 * K;  // staged elements per query code
-    __syncwarp();  // the previous pair has read its profile
-    for (int e = lane; e < LDK * NCOL; e += 32) {
-        const int j = e / NCOL;
-        const int code = e - j * NCOL;
-        T v = gt::from_float<T>(NEG_INF);
-        if (j < pv.ncols) {
-            const int r = pv.prof_row(j);
-            v = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
-        }
-        Ps[code * LDK + (j % K) * 32 + j / K] = v;
-    }
-    __syncwarp();
-
-    const int j0 = lane * K;
-    float H[K], Fp[K], colf[K], colm1[K];
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-        const bool real = j0 + c < pv.ncols;
-        H[c] = 0.f;
-        Fp[c] = NEG_INF;
-        colf[c] = real ? (float)(j0 + c) : NEG_INF;                          // masked: t = -inf
-        colm1[c] = real ? __fsub_rn((float)(j0 + c), GAP_EXTEND) : -NEG_INF;  // masked: e = -inf
-    }
-    float lbest = 0.f;
-    int li = 0, lc = 0;
-    int code = pv.query_code(0);
-    for (int i = 0; i < pv.nrows; ++i) {
-        const int next = i + 1 < pv.nrows ? pv.query_code(i + 1) : PAD;
-        const T* s = Ps + code * LDK + lane;
-        const float up = __shfl_up_sync(FULL, H[K - 1], 1);
-        float diag = lane == 0 ? 0.f : up;
-        float P[K];  // running max of t over the chunk, through column c
-        float run = NEG_INF;
-#pragma unroll
-        for (int c = 0; c < K; ++c) {
-            const float hp = H[c];
-            const float f = fmaxf(__fsub_rn(hp, GAP_OPEN), __fsub_rn(Fp[c], GAP_EXTEND));
-            const float h0 = fmaxf(fmaxf(__fadd_rn(diag, gt::to_float(s[c * 32])), f), 0.f);
-            diag = hp;
-            Fp[c] = f;
-            H[c] = h0;
-            run = fmaxf(run, __fadd_rn(__fsub_rn(h0, GAP_OPEN), colf[c]));
-            P[c] = run;
-        }
-        // inclusive scan of the chunk maxima, then shifted: the max of t over
-        // every column of the earlier lanes (lanes below `off` get their own
-        // value back, which leaves the max unchanged)
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) run = fmaxf(run, __shfl_up_sync(FULL, run, off));
-        const float below = __shfl_up_sync(FULL, run, 1);
-        const float ex = lane == 0 ? NEG_INF : below;
-        float rmax = 0.f;
-#pragma unroll
-        for (int c = 0; c < K; ++c) {
-            const float m = c == 0 ? ex : fmaxf(ex, P[c - 1]);
-            H[c] = fmaxf(H[c], __fsub_rn(m, colm1[c]));
-            rmax = fmaxf(rmax, H[c]);
-        }
-        if (rmax > lbest) {  // rare after the first rows: find the first column
-            int first = K - 1;
-#pragma unroll
-            for (int c = K - 1; c >= 0; --c) {
-                if (H[c] == rmax) first = c;
-            }
-            lbest = rmax;
-            li = i;
-            lc = first;
-        }
-        code = next;
-    }
-    best = lbest;
-    best_i = li;
-    best_j = j0 + lc;
-}
-
-// Columns per lane are rounded up to a multiple of this step: one body per k
-// up to KMAX = 12, eight bodies above.
-__host__ __device__ constexpr int chunk_step(int kmax) { return kmax <= 12 ? 1 : kmax / 8; }
-
-template <typename T, int K, int KMAX>
-__device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
-                                               int lane, float& best, int& best_i, int& best_j) {
-    if constexpr (K >= KMAX) {
-        chunk_pair<T, KMAX>(pv, prow, Ps, lane, best, best_i, best_j);
-    } else {
-        if (k <= K) {
-            chunk_pair<T, K>(pv, prow, Ps, lane, best, best_i, best_j);
-        } else {
-            chunk_dispatch<T, K + chunk_step(KMAX), KMAX>(k, pv, prow, Ps, lane, best, best_i, best_j);
-        }
-    }
-}
-
-template <typename T, int KMAX>
-__global__ void __launch_bounds__(WARPS * 32) sw_chunk_kernel(
-    const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
-    const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
-    float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out, int N, int Lq, int Lp) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int pair = blockIdx.x * WARPS + warp;
-    if (pair >= N) return;
-    T* Ps = reinterpret_cast<T*>(smem_raw) + (size_t)warp * NCOL * 32 * KMAX;
-    const PairView pv = pair_view(q, idx, ends, q_len, p_len, pair, N, Lq, Lp);
-
-    float best = 0.f;
-    int best_i = 0, best_j = 0;
-    if (pv.nrows > 0 && pv.ncols > 0) {
-        const int k = (pv.ncols + 31) >> 5;
-        chunk_dispatch<T, chunk_step(KMAX), KMAX>(k, pv, p + (size_t)pv.pi * Lp * NCOL, Ps, lane, best, best_i, best_j);
-    }
-    // highest value, then the lowest row, then the lowest column
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(FULL, best, off);
-        const int oi = __shfl_xor_sync(FULL, best_i, off);
-        const int oj = __shfl_xor_sync(FULL, best_j, off);
-        if (ov > best || (ov == best && (oi < best_i || (oi == best_i && oj < best_j)))) {
-            best = ov;
-            best_i = oi;
-            best_j = oj;
-        }
-    }
-    if (lane == 0) {
-        best_out[pair] = best;
-        ei_out[pair] = best_i;
-        ej_out[pair] = best_j;
-    }
-}
-
-// ---------------------------------------------------------------------------
-// The long body's slabs (Lp > 1024)
+// Register-chunk body (Lp <= 1024) and the slabs of the long body
 // ---------------------------------------------------------------------------
 
 // Where a slab of the long body lies in its pair: its first column and the
@@ -360,20 +218,33 @@ __device__ __forceinline__ void stage_slab(const PairView& pv, const T* __restri
     }
 }
 
-// One slab of a pair: chunk_pair's rows over the slab's columns, each row
-// entered with the previous slab's carries (sl.cin) and its own left for
-// the next slab (sl.cout). A copy of chunk_pair, not a variant of it: a
-// compile-time variant of one template changed the chunk body's machine
-// code (register allocation and order), which stays as it was.
-template <typename T, int K>
-__device__ __forceinline__ void slab_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
-                                          int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
+// One pair (or one slab of it, CARRY) with K columns per lane (32 K >= the
+// columns left): stages the profile, runs the rows, and leaves the lane's
+// best (value, row, column). CARRY = false is the register-chunk body; its
+// carry reads and writes compile out.
+template <typename T, int K, bool CARRY>
+__device__ __forceinline__ void chunk_pair(const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+                                           int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
     constexpr int LDK = 32 * K;  // staged elements per query code
-    __syncwarp();  // the previous pair or slab has read its profile
-    stage_slab<T, K>(pv, prow, Ps, lane, sl.c0);
+    const int c0 = CARRY ? sl.c0 : 0;
+    __syncwarp();  // the previous pair (or slab) has read its profile
+    if constexpr (CARRY) {
+        stage_slab<T, K>(pv, prow, Ps, lane, c0);
+    } else {
+        for (int e = lane; e < LDK * NCOL; e += 32) {
+            const int j = e / NCOL;
+            const int code = e - j * NCOL;
+            T v = gt::from_float<T>(NEG_INF);
+            if (j < pv.ncols) {
+                const int r = pv.prof_row(j);
+                v = r >= 0 ? prow[(size_t)r * NCOL + code] : gt::from_float<T>(0.f);
+            }
+            Ps[code * LDK + (j % K) * 32 + j / K] = v;
+        }
+    }
     __syncwarp();
 
-    const int j0 = sl.c0 + lane * K;
+    const int j0 = c0 + lane * K;
     float H[K], Fp[K], colf[K], colm1[K];
 #pragma unroll
     for (int c = 0; c < K; ++c) {
@@ -386,17 +257,21 @@ __device__ __forceinline__ void slab_pair(const PairView& pv, const T* __restric
     float lbest = 0.f;
     int li = 0, lc = 0;
     int code = pv.query_code(0);
-    // lane 0's carries of the row; (0, -inf) on the other lanes and in slab 0
+    // lane 0's carries of the row (0, -inf on the other lanes and in slab 0)
     float2 cur = make_float2(0.f, NEG_INF);
-    if (sl.cin && lane == 0) cur = sl.carry[0];
+    if constexpr (CARRY) {
+        if (sl.cin && lane == 0) cur = sl.carry[0];
+    }
     for (int i = 0; i < pv.nrows; ++i) {
         const int next = i + 1 < pv.nrows ? pv.query_code(i + 1) : PAD;
         float2 nxt = make_float2(0.f, NEG_INF);
-        if (sl.cin && lane == 0 && i + 1 < pv.nrows) nxt = sl.carry[i + 1];  // a row ahead
+        if constexpr (CARRY) {
+            if (sl.cin && lane == 0 && i + 1 < pv.nrows) nxt = sl.carry[i + 1];  // a row ahead
+        }
         const T* s = Ps + code * LDK + lane;
-        // rotated: lane 0 gets lane 31's last H of the row above, the carry
-        // of row i - 1 for the next slab
-        const float up = __shfl_sync(FULL, H[K - 1], (lane + 31) & 31);
+        // CARRY rotates: lane 0 gets lane 31's last H of the row above, the
+        // carry of row i - 1 for the next slab
+        const float up = CARRY ? __shfl_sync(FULL, H[K - 1], (lane + 31) & 31) : __shfl_up_sync(FULL, H[K - 1], 1);
         float diag = lane == 0 ? cur.x : up;
         float P[K];  // running max of t over the chunk, through column c
         float run = NEG_INF;
@@ -411,13 +286,18 @@ __device__ __forceinline__ void slab_pair(const PairView& pv, const T* __restric
             run = fmaxf(run, __fadd_rn(__fsub_rn(h0, GAP_OPEN), colf[c]));
             P[c] = run;
         }
-        run = fmaxf(run, cur.y);  // the earlier slabs' t enter the scan at lane 0
+        if constexpr (CARRY) run = fmaxf(run, cur.y);  // the earlier slabs' t enter the scan at lane 0
+        // inclusive scan of the chunk maxima, then shifted: the max of t over
+        // every column of the earlier lanes (lanes below `off` get their own
+        // value back, which leaves the max unchanged)
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) run = fmaxf(run, __shfl_up_sync(FULL, run, off));
-        // rotated: lane 0 gets the max of t through the slab's last column
-        const float below = __shfl_sync(FULL, run, (lane + 31) & 31);
+        // CARRY rotates: lane 0 gets the max of t through the slab's last column
+        const float below = CARRY ? __shfl_sync(FULL, run, (lane + 31) & 31) : __shfl_up_sync(FULL, run, 1);
         const float ex = lane == 0 ? cur.y : below;
-        if (sl.cout && lane == 0) sl.carry[i] = make_float2(up, below);  // after its read: same lane
+        if constexpr (CARRY) {
+            if (sl.cout && lane == 0) sl.carry[i] = make_float2(up, below);  // after its read: same lane
+        }
         float rmax = 0.f;
 #pragma unroll
         for (int c = 0; c < K; ++c) {
@@ -443,16 +323,20 @@ __device__ __forceinline__ void slab_pair(const PairView& pv, const T* __restric
     best_j = j0 + lc;
 }
 
-template <typename T, int K, int KMAX>
-__device__ __forceinline__ void slab_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
-                                              int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
+// Columns per lane are rounded up to a multiple of this step: one body per k
+// up to KMAX = 12, eight bodies above.
+__host__ __device__ constexpr int chunk_step(int kmax) { return kmax <= 12 ? 1 : kmax / 8; }
+
+template <typename T, int K, int KMAX, bool CARRY>
+__device__ __forceinline__ void chunk_dispatch(int k, const PairView& pv, const T* __restrict__ prow, T* __restrict__ Ps,
+                                               int lane, const Slab& sl, float& best, int& best_i, int& best_j) {
     if constexpr (K >= KMAX) {
-        slab_pair<T, KMAX>(pv, prow, Ps, lane, sl, best, best_i, best_j);
+        chunk_pair<T, KMAX, CARRY>(pv, prow, Ps, lane, sl, best, best_i, best_j);
     } else {
         if (k <= K) {
-            slab_pair<T, K>(pv, prow, Ps, lane, sl, best, best_i, best_j);
+            chunk_pair<T, K, CARRY>(pv, prow, Ps, lane, sl, best, best_i, best_j);
         } else {
-            slab_dispatch<T, K + chunk_step(KMAX), KMAX>(k, pv, prow, Ps, lane, sl, best, best_i, best_j);
+            chunk_dispatch<T, K + chunk_step(KMAX), KMAX, CARRY>(k, pv, prow, Ps, lane, sl, best, best_i, best_j);
         }
     }
 }
@@ -464,6 +348,45 @@ __device__ __forceinline__ void take_best(float v, int i, int j, float& best, in
         best_i = i;
         best_j = j;
     }
+}
+
+// The warp's best cell by take_best's rule; lane 0 writes it.
+__device__ __forceinline__ void write_best(float best, int best_i, int best_j, int lane, int pair,
+                                           float* __restrict__ best_out, int* __restrict__ ei_out,
+                                           int* __restrict__ ej_out) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        take_best(__shfl_xor_sync(FULL, best, off), __shfl_xor_sync(FULL, best_i, off),
+                  __shfl_xor_sync(FULL, best_j, off), best, best_i, best_j);
+    }
+    if (lane == 0) {
+        best_out[pair] = best;
+        ei_out[pair] = best_i;
+        ej_out[pair] = best_j;
+    }
+}
+
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(WARPS * 32) sw_chunk_kernel(
+    const int* __restrict__ q, const T* __restrict__ p, const int* __restrict__ idx,
+    const int* __restrict__ ends, const int* __restrict__ q_len, const int* __restrict__ p_len,
+    float* __restrict__ best_out, int* __restrict__ ei_out, int* __restrict__ ej_out, int N, int Lq, int Lp) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int pair = blockIdx.x * WARPS + warp;
+    if (pair >= N) return;
+    T* Ps = reinterpret_cast<T*>(smem_raw) + (size_t)warp * NCOL * 32 * KMAX;
+    const PairView pv = pair_view(q, idx, ends, q_len, p_len, pair, N, Lq, Lp);
+
+    float best = 0.f;
+    int best_i = 0, best_j = 0;
+    if (pv.nrows > 0 && pv.ncols > 0) {
+        const int k = (pv.ncols + 31) >> 5;
+        chunk_dispatch<T, chunk_step(KMAX), KMAX, false>(k, pv, p + (size_t)pv.pi * Lp * NCOL, Ps, lane,
+                                                         Slab{0, nullptr, false, false}, best, best_i, best_j);
+    }
+    write_best(best, best_i, best_j, lane, pair, best_out, ei_out, ej_out);
 }
 
 // The long body (Lp > 1024): a pair's columns in slabs of SLAB = 32 KMAX,
@@ -501,23 +424,14 @@ __global__ void __launch_bounds__(WARPS * 32) sw_slab_kernel(
             float b;
             int bi, bj;
             if (sl.cout) {
-                slab_pair<T, KMAX>(pv, prow, Ps, lane, sl, b, bi, bj);
+                chunk_pair<T, KMAX, true>(pv, prow, Ps, lane, sl, b, bi, bj);
             } else {
                 const int k = (pv.ncols - sl.c0 + 31) >> 5;
-                slab_dispatch<T, chunk_step(KMAX), KMAX>(k, pv, prow, Ps, lane, sl, b, bi, bj);
+                chunk_dispatch<T, chunk_step(KMAX), KMAX, true>(k, pv, prow, Ps, lane, sl, b, bi, bj);
             }
             take_best(b, bi, bj, best, best_i, best_j);
         }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            take_best(__shfl_xor_sync(FULL, best, off), __shfl_xor_sync(FULL, best_i, off),
-                      __shfl_xor_sync(FULL, best_j, off), best, best_i, best_j);
-        }
-        if (lane == 0) {
-            best_out[pair] = best;
-            ei_out[pair] = best_i;
-            ej_out[pair] = best_j;
-        }
+        write_best(best, best_i, best_j, lane, pair, best_out, ei_out, ej_out);
     }
 }
 
@@ -556,32 +470,40 @@ cudaError_t launch_chunk_bucket(const void* q, const void* p, const void* idx, c
 constexpr int CHUNK_MAX_LP = 1024;  // longer buckets take the long body
 constexpr int SLAB_KMAX = 16;       // the long body's slabs: 512 columns
 
+// The long body's staged slabs: one per warp.
+template <typename T>
+constexpr size_t slab_smem() {
+    return (size_t)WARPS * NCOL * 32 * SLAB_KMAX * sizeof(T);
+}
+
 // The long body's persistent grid: as many warps as fit on the card at
 // once (shared memory: the staged slab of each warp), at most one per pair.
+// Also lets the kernel take its shared memory, which the launch needs.
 template <typename T>
-cudaError_t slab_grid(int N, size_t& smem, int& warps) {
+cudaError_t slab_grid(int N, int& warps) {
     auto kernel = sw_slab_kernel<T, SLAB_KMAX>;
-    smem = (size_t)WARPS * NCOL * 32 * SLAB_KMAX * sizeof(T);
     int dev, sms, blocks;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)slab_smem<T>());
     if (err == cudaSuccess) err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WARPS * 32, smem);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WARPS * 32, slab_smem<T>());
     warps = err == cudaSuccess ? std::min((N + WARPS - 1) / WARPS, std::max(blocks, 1) * sms) * WARPS : 0;
     return err;
 }
 
+// Launches the `warps` that sw_carry_warps sized `carry` for: whole blocks,
+// at most one warp per pair. (A grid larger than the card holds at once
+// would still be right: the counter hands out the pairs.)
 template <typename T>
 cudaError_t launch_slab(const void* q, const void* p, const void* idx, const void* ends, const void* q_len,
-                        const void* p_len, void* best, void* ei, void* ej, void* carry, int N, int Lq, int Lp,
-                        cudaStream_t s) {
-    size_t smem;
-    int warps;
-    cudaError_t err = slab_grid<T>(N, smem, warps);
+                        const void* p_len, void* best, void* ei, void* ej, void* carry, int warps, int N, int Lq,
+                        int Lp, cudaStream_t s) {
+    if (carry == nullptr || warps <= 0 || warps % WARPS != 0 || warps > (N + WARPS - 1) / WARPS * WARPS) {
+        return cudaErrorInvalidValue;
+    }
+    cudaError_t err = cudaMemsetAsync(carry, 0, sizeof(int), s);  // the pair counter
     if (err != cudaSuccess) return err;
-    if (carry == nullptr) return cudaErrorInvalidValue;  // the buffer sw_carry_warps asked for
-    if ((err = cudaMemsetAsync(carry, 0, sizeof(int), s)) != cudaSuccess) return err;  // the pair counter
-    sw_slab_kernel<T, SLAB_KMAX><<<warps / WARPS, WARPS * 32, smem, s>>>(
+    sw_slab_kernel<T, SLAB_KMAX><<<warps / WARPS, WARPS * 32, slab_smem<T>(), s>>>(
         static_cast<const int*>(q), static_cast<const T*>(p), static_cast<const int*>(idx),
         static_cast<const int*>(ends), static_cast<const int*>(q_len), static_cast<const int*>(p_len),
         static_cast<float*>(best), static_cast<int*>(ei), static_cast<int*>(ej), static_cast<float2*>(carry), N, Lq,
@@ -591,30 +513,32 @@ cudaError_t launch_slab(const void* q, const void* p, const void* idx, const voi
 
 }  // namespace
 
-// Lp > 1024 (the long body): *warps = the warps of its grid; the launch
-// needs a global buffer of 1 + warps * Lq float2 (a pair counter, then each
-// warp's carries). Lp <= 1024: 0.
+// Lp > 1024 (the long body): *warps = the warps of its grid; its launch
+// takes them with a global buffer of 1 + warps * Lq float2 (a pair counter,
+// then each warp's carries). Call it before each such launch, on the
+// launch's device. Lp <= 1024: 0.
 extern "C" int sw_carry_warps(int N, int Lp, int is_bf16, int* warps) {
     *warps = 0;
     if (Lp <= CHUNK_MAX_LP || N <= 0) return 0;
-    size_t smem;
-    const cudaError_t err = is_bf16 ? slab_grid<gt::bf16>(N, smem, *warps) : slab_grid<float>(N, smem, *warps);
+    const cudaError_t err = is_bf16 ? slab_grid<gt::bf16>(N, *warps) : slab_grid<float>(N, *warps);
     return static_cast<int>(err);
 }
 
-// The register-chunk body for Lp <= 1024, else the long body, with `carry`
-// the global buffer sw_carry_warps asked for.
+// The register-chunk body for Lp <= 1024, else the long body over
+// `carry_warps` warps with `carry` their buffer, as sw_carry_warps gave them.
 extern "C" int sw_pairs_launch(const void* q, const void* p, const void* idx, const void* ends,
                                const void* q_len, const void* p_len, void* best, void* ei, void* ej,
-                               void* carry, int N, int Lq, int Lp, int is_bf16, void* stream) {
+                               void* carry, int carry_warps, int N, int Lq, int Lp, int is_bf16, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (Lp <= CHUNK_MAX_LP) {
         err = is_bf16 ? launch_chunk_bucket<gt::bf16>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s)
                       : launch_chunk_bucket<float>(q, p, idx, ends, q_len, p_len, best, ei, ej, N, Lq, Lp, s);
     } else {
-        err = is_bf16 ? launch_slab<gt::bf16>(q, p, idx, ends, q_len, p_len, best, ei, ej, carry, N, Lq, Lp, s)
-                      : launch_slab<float>(q, p, idx, ends, q_len, p_len, best, ei, ej, carry, N, Lq, Lp, s);
+        err = is_bf16 ? launch_slab<gt::bf16>(q, p, idx, ends, q_len, p_len, best, ei, ej, carry, carry_warps, N, Lq,
+                                              Lp, s)
+                      : launch_slab<float>(q, p, idx, ends, q_len, p_len, best, ei, ej, carry, carry_warps, N, Lq,
+                                           Lp, s);
     }
     return static_cast<int>(err);
 }

@@ -4,9 +4,10 @@ A copy of ``genomad_tpu/native`` with one change: the shared library is
 compiled on first use with g++ (-O3 -march=native) into the port's build
 dir (``genomad_torch/build/``, gitignored, or the user cache when the
 installed package cannot be written: ``genomad_torch.build_dir``), not
-next to the source, under a name that stamps the source, and the build is
-atomic (each process compiles to a private file and renames it), so
-concurrent first uses never load a half-written library. Every native entry
+next to the source, under a name that hashes the source and the flags
+(``genomad_torch.build_dir.library_name``, as for the kernels), and the
+build is atomic (each process compiles to a private file and renames it),
+so concurrent first uses never load a half-written library. Every native entry
 point has a pure numpy fallback in genomad_torch.ops, so the package works
 without a toolchain; the native path is selected automatically when
 available. ``native_prefilter_batch.uses`` counts the calls the native
@@ -16,22 +17,18 @@ library served.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import subprocess
 from pathlib import Path
 
 import numpy as np
 
-from genomad_torch.build_dir import build_dir
+from genomad_torch.build_dir import build_dir, library_name
 
 _DIR = Path(__file__).parent
 _SOURCES = sorted(_DIR.glob("*.cpp"))
-# named by the sources' sizes and times (read without opening them): an
-# edited or reinstalled source builds anew, and versions that share the
-# user cache never load each other's library
-_STAMP = hashlib.sha256(repr([(p.name, p.stat().st_size, p.stat().st_mtime_ns) for p in _SOURCES]).encode())
-_LIB_PATH = build_dir() / f"libgenomad_native-{_STAMP.hexdigest()[:16]}.so"
+_GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+_LIB_PATH = build_dir() / library_name("genomad_native", _SOURCES, _GXX_FLAGS)
 _lib = None
 _lib_failed = False
 
@@ -40,10 +37,7 @@ def _build() -> bool:
     sources = [str(p) for p in _SOURCES]
     _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        "-pthread", *sources, "-o", str(tmp),
-    ]
+    cmd = ["g++", *_GXX_FLAGS, *sources, "-o", str(tmp)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, _LIB_PATH)

@@ -17,7 +17,6 @@ imported.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -26,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-from genomad_torch.build_dir import PACKAGE_DIR, build_dir
+from genomad_torch.build_dir import PACKAGE_DIR, build_dir, library_name
 
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = build_dir()
@@ -51,11 +50,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):  # the .cuh headers are shared
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    # every source of csrc, since the .cuh headers are shared
+    return BUILD_DIR / library_name(name, sorted(CSRC.glob("*.cu*")), NVCC_FLAGS)
 
 
 def build(names=SOURCES) -> dict[str, str]:

@@ -43,7 +43,7 @@ _CHUNK_MAX_LP = 1024
 
 _SIGNATURES = {
     "sw_carry_warps": [_build.I] * 3 + [_build.P],
-    "sw_pairs_launch": [_build.P] * 10 + [_build.I] * 4 + [_build.P],
+    "sw_pairs_launch": [_build.P] * 10 + [_build.I] * 5 + [_build.P],
 }
 
 
@@ -157,15 +157,14 @@ def sw_pairs(all_q, all_p, idx, ends=None, lengths=None):
     lib = _build.load("sw", _SIGNATURES)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
-        carry = None
-        if Lp > _CHUNK_MAX_LP:  # the long body's pair counter and each of its warps' row carries
-            warps = ctypes.c_int(0)
+        carry, warps = None, ctypes.c_int(0)
+        if Lp > _CHUNK_MAX_LP:  # the long body's grid, its pair counter and each of its warps' row carries
             _build.check(lib.sw_carry_warps(N, Lp, is_bf16, ctypes.byref(warps)), "sw_pairs")
             carry = torch.empty((1 + warps.value * Lq, 2), dtype=torch.float32, device=dev)
         err = lib.sw_pairs_launch(
             all_q.data_ptr(), all_p.data_ptr(), idx.data_ptr(), ptr(ends),
             ptr(lengths[0] if lengths is not None else None), ptr(lengths[1] if lengths is not None else None),
-            best.data_ptr(), end_i.data_ptr(), end_j.data_ptr(), ptr(carry),
+            best.data_ptr(), end_i.data_ptr(), end_j.data_ptr(), ptr(carry), warps.value,
             N, Lq, Lp, is_bf16, _build.stream_ptr(dev),
         )
     _build.check(err, "sw_pairs")

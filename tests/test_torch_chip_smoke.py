@@ -45,16 +45,53 @@ def test_without_a_card_main_fails_before_any_phase(monkeypatch, capsys):
 
 
 def test_sw_times_names_a_tree_and_needs_a_card(monkeypatch, capsys):
-    """``--sw-times TREE`` (K1's timed cases with TREE's genomad_torch, for
-    turns between two checkouts) fails without a card before it imports
-    anything of TREE."""
-    assert chip_smoke.parse_args(["--sw-times", "parent"]).sw_times == "parent"
-    assert chip_smoke.parse_args([]).sw_times is None
+    """K1's turns between two trees are a tool of their own
+    (``genomad_torch.tools.sw_turns OTHER``), not a mode of chip_smoke.py:
+    the tool takes another revision or archive, fails without a card
+    before it unpacks anything, and leaves sys.path as it was."""
+    from genomad_torch.tools import sw_turns
+
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--sw-times", "parent"])
+    args = sw_turns.parse_args(["parent.tar"])
+    assert (args.other, args.turn) == ("parent.tar", None)
+    with pytest.raises(SystemExit):
+        sw_turns.parse_args([])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sw_turns, "unpack", lambda *a: pytest.fail("unpacked without a card"))
     path = list(sys.path)
-    assert chip_smoke.main(["--sw-times", "parent"]) == 1
+    assert sw_turns.main(["parent.tar"]) == 1
     assert sys.path == path
     assert capsys.readouterr().out == ""
+
+
+def test_sw_turns_unpacks_an_archive_into_its_own_directory(tmp_path):
+    """The other tree is unpacked where the tool says (its own temporary
+    directory), never into a checkout; an archive without K1's wrapper is
+    refused."""
+    import tarfile
+
+    from genomad_torch.tools import sw_turns
+
+    def archive(name, files):
+        path = tmp_path / name
+        with tarfile.open(path, "w") as tar:
+            for rel in files:
+                src = tmp_path / "src" / name / rel
+                src.parent.mkdir(parents=True, exist_ok=True)
+                src.write_text("# stub\n")
+                tar.add(src, arcname=rel)
+        return str(path)
+
+    good = archive("good.tar", ["genomad_torch/__init__.py", "genomad_torch/ops/sw.py", "chip_smoke.py"])
+    into = tmp_path / "turn"
+    into.mkdir()
+    assert sw_turns.unpack(good, into) == into
+    assert (into / "genomad_torch" / "ops" / "sw.py").read_text() == "# stub\n"
+    bad = archive("bad.tar", ["genomad_torch/__init__.py"])
+    (tmp_path / "bad").mkdir()
+    with pytest.raises(ValueError, match="no genomad_torch/ops/sw.py"):
+        sw_turns.unpack(bad, tmp_path / "bad")
 
 
 def test_sw_bucket_pairs_takes_a_query_bound_of_its_own():

@@ -89,3 +89,23 @@ def test_builds_follow_a_read_only_install(tmp_path, module):
     env = {**os.environ, "XDG_CACHE_HOME": str(tmp_path)}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120, check=True)
     assert Path(out.stdout.strip()) == tmp_path / "genomad_torch"
+
+
+def test_kernels_and_prefilter_are_named_by_content_and_flags(tmp_path):
+    """One naming scheme for every native library: a hash of the sources'
+    content and the compiler flags. A touched file keeps its library; an
+    edited source or another flag names a new one."""
+    from genomad_torch import native
+    from genomad_torch.ops import _build
+
+    src = tmp_path / "a.cpp"
+    src.write_text("int f() { return 1; }\n")
+    name = bd.library_name("x", [src], ["-O3"])
+    assert name.startswith("libx-") and name.endswith(".so")
+    os.utime(src, (0, 0))
+    assert bd.library_name("x", [src], ["-O3"]) == name
+    assert bd.library_name("x", [src], ["-O2"]) != name
+    src.write_text("int f() { return 2; }\n")
+    assert bd.library_name("x", [src], ["-O3"]) != name
+    assert native._LIB_PATH.name == bd.library_name("genomad_native", sorted((PORT / "native").glob("*.cpp")), native._GXX_FLAGS)
+    assert _build._target("sw").name == bd.library_name("sw", sorted((PORT / "csrc").glob("*.cu*")), _build.NVCC_FLAGS)
