@@ -1405,6 +1405,7 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
     annotate.main(fasta, workdir / "out", db_dir, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    ps.join_prestage()  # its bucket in flight counts in STATS, not in the wall
     fwd, rev = sw.sw_pairs.forward_launches, sw.sw_pairs.reverse_launches
     nn_launches = (conv.embed_conv.launches + conv.embed_conv_bases.launches + conv.causal_conv.launches
                    + patch_reduce.fused_reduce.launches)
@@ -1444,11 +1445,13 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
         "gene_calling_s": gene_s,
         "marker_search_s": search_s,
         "prefilter_s (worker thread)": stats.get("prefilter_s", 0.0),
+        "prestage_s (prestage thread)": stats.get("prestage_s", 0.0),
         "bucket_staging_s": stats.get("staging_s", 0.0),
+        "staging_wait_s": stats.get("staging_wait_s", 0.0),
         "sw_forward_s": stats.get("sw_forward_s", 0.0),
         "sw_reverse_s": stats.get("sw_reverse_s", 0.0),
         "finalize_s": stats.get("finalize_s", 0.0),
-        "db_load_index_and_rest_of_search_s": search_s - sum(stats.get(k, 0.0) for k in ("staging_s", "sw_forward_s", "sw_reverse_s", "finalize_s")),
+        "db_load_index_and_rest_of_search_s": search_s - sum(stats.get(k, 0.0) for k in ("staging_s", "staging_wait_s", "sw_forward_s", "sw_reverse_s", "finalize_s")),
         "tables_and_rest_s": wall - gene_s - search_s,
         "k1_gcells_per_s_forward_stage": stats.get("cells_forward", 0.0) / max(stats.get("sw_forward_s", 0.0), 1e-9) / 1e9,
     }
@@ -1489,10 +1492,31 @@ def search_device_share(names, seqs, db) -> dict:
         return {"device_busy_share": f"not measured: {exc!r}"}
 
 
-def real_db_phase() -> dict:
+def cold_and_steady(names, seqs, db) -> dict:
+    """Times the search on a DB with nothing staged (cold), then again
+    (steady): each run's wall, its STATS (read after its prestage thread
+    has ended) and its hits. Raises if the two runs' hits differ."""
     from genomad_torch.ops import protein_search as ps
-    from genomad_torch.ops import sw
 
+    out = {}
+    for run in ("cold", "steady"):
+        ps.STATS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[run + "_hits"] = ps.search(names, seqs, db)
+        torch.cuda.synchronize()
+        out[run + "_s"] = time.perf_counter() - t0
+        ps.join_prestage()
+        out[run + "_stats"] = dict(ps.STATS)
+    if out["steady_hits"] != out["cold_hits"]:
+        raise AssertionError("the steady search differs from the cold one")
+    return out
+
+
+def real_db() -> tuple:
+    """The search's DB at the real DB's profile count, with its k-mer index
+    and int8 PSSM built outside any search's time: (db, build seconds,
+    index and int8 seconds)."""
     t0 = time.perf_counter()
     db = bench_db(REAL_DB_PROFILES)
     build_s = time.perf_counter() - t0
@@ -1500,27 +1524,22 @@ def real_db_phase() -> dict:
     db.kmer_index(1)
     if db.pssm_i8 is None:
         raise AssertionError("the synthetic integral DB must have an int8 PSSM")
-    index_s = time.perf_counter() - t0
+    return db, build_s, time.perf_counter() - t0
+
+
+def real_db_phase() -> dict:
+    from genomad_torch.ops import protein_search as ps
+    from genomad_torch.ops import sw
+
+    db, build_s, index_s = real_db()
     names, seqs, targets = bench_queries(db, N_SEARCH_QUERIES)
     residues = sum(len(s) for s in seqs)
 
-    ps.STATS.clear()
     sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = 0
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cold_hits = ps.search(names, seqs, db)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    cold_stats = dict(ps.STATS)
-    ps.STATS.clear()
-    t0 = time.perf_counter()
-    hits = ps.search(names, seqs, db)
-    torch.cuda.synchronize()
-    steady_s = time.perf_counter() - t0
-    stats = dict(ps.STATS)
-    if hits != cold_hits:
-        raise AssertionError("the steady search differs from the cold one")
+    runs = cold_and_steady(names, seqs, db)
+    hits, cold_s, steady_s = runs["steady_hits"], runs["cold_s"], runs["steady_s"]
+    cold_stats, stats = runs["cold_stats"], runs["steady_stats"]
     planted = np.where(targets >= 0)[0]
     found = sum(1 for qi in planted if hits.get(names[qi], ("",))[0] == str(db.names[targets[qi]]))
     if found < 0.9 * len(planted):
@@ -2046,6 +2065,7 @@ def mesh_phase(workdir: Path, db) -> dict:
         ps.search(names, seqs, db, mesh=mesh)
         torch.cuda.synchronize()
         cold[key] = time.perf_counter() - t0
+        ps.join_prestage()
         if mesh is not None:
             mesh.cell_launches.clear()
         ps.STATS.clear()

@@ -68,16 +68,21 @@ def pad_bases(bases: torch.Tensor, length: int) -> torch.Tensor:
     return F.pad(bases, (0, length - bases.shape[1]), value=N_CODE)
 
 
-def tokens_from_bases(bases: torch.Tensor) -> torch.Tensor:
-    """5-ary base codes (B, n) -> int32 tokens (B, n - 3): the 4-mer value of
-    bases t..t+3 plus 1, or 0 when any of them is N (a code >= 4)
-    (genomad/sequence.py:170-193 semantics)."""
-    codes = bases.to(torch.int32)
-    n_out = codes.shape[1] - 3
-    windows = [codes[:, j : j + n_out] for j in range(4)]
-    valid = (windows[0] < N_CODE) & (windows[1] < N_CODE) & (windows[2] < N_CODE) & (windows[3] < N_CODE)
-    token = windows[0] * 64 + windows[1] * 16 + windows[2] * 4 + windows[3] + 1
-    return torch.where(valid, token, torch.zeros_like(token))
+def tokens_from_bases(bases: torch.Tensor, word_size: int = 4) -> torch.Tensor:
+    """5-ary base codes (B, n) -> tokens (B, n - word_size + 1): the k-mer
+    value (2 bits per base, first base highest) of bases t..t+k-1 plus 1,
+    or 0 when any of them is N (a code >= 4) (genomad/sequence.py:170-193
+    semantics). int32, or int64 for words over 15 bases; the port's one
+    k-mer rule (``sequence.tokenize_dna`` calls it)."""
+    codes = bases.to(torch.int32 if word_size <= 15 else torch.int64)
+    n_out = codes.shape[1] - word_size + 1
+    token = codes[:, :n_out]
+    valid = token < N_CODE
+    for j in range(1, word_size):
+        window = codes[:, j : j + n_out]
+        valid = valid & (window < N_CODE)
+        token = token * 4 + window
+    return torch.where(valid, token + 1, torch.zeros_like(token))
 
 
 # ---------------------------------------------------------------------------

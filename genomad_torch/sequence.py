@@ -1,10 +1,12 @@
 """Sequence core: FASTA IO, windowing, terminal repeats and base codes.
 
-Copied from ``genomad_tpu/sequence.py`` (all but the k-mer tokenizer: the
-port's classifier takes base codes). Reference = apcamargo/genomad v1.12.0:
+Copied from ``genomad_tpu/sequence.py``; the k-mer tokenizer
+(``tokenize_dna``) runs the rule of ``ops.conv.tokens_from_bases``, which
+the classifier runs on base codes. Reference = apcamargo/genomad v1.12.0:
   - Sequence semantics (rc / DTR / ITR / formatting): genomad/sequence.py:10-93
   - streaming FASTA reader:                           genomad/sequence.py:96-121
   - 6 kb windowing generator:                         genomad/sequence.py:150-166
+  - k-mer tokenizer:                                  genomad/sequence.py:170-193
 """
 
 from __future__ import annotations
@@ -173,3 +175,28 @@ def seq_windows(seq: Sequence, length: int, min_length: int = 0, force_first_win
         if max_windows and win == max_windows:
             break
 
+
+
+def tokenize_dna(seq: bytes, word_size: int = 4) -> np.ndarray:
+    """Overlapping k-mer tokens of uppercase DNA: token[i] = 1 + the 2-bit
+    big-endian packing of seq[i:i+word_size] if the window is pure ACGT,
+    else 0 (``ops.conv.tokens_from_bases`` on the base codes). Returns an
+    int64 array of length max(len(seq) - word_size + 1, 0)."""
+    import torch
+
+    from genomad_torch.ops.conv import tokens_from_bases
+
+    codes = _BASE_CODES[np.frombuffer(seq, dtype=np.uint8)]
+    if len(codes) < word_size:
+        return np.zeros(0, dtype=np.int64)
+    return tokens_from_bases(torch.from_numpy(codes)[None], word_size)[0].numpy().astype(np.int64)
+
+
+def tokenize_windows(windows_ascii: list[bytes], window_length: int, word_size: int = 4) -> np.ndarray:
+    """Tokenize a batch of windows, each padded with N to ``window_length``
+    (the reference pads with b"N": nn_classification.py:72). Returns an
+    int64 array of shape (n_windows, window_length - word_size + 1)."""
+    out = np.zeros((len(windows_ascii), window_length - word_size + 1), dtype=np.int64)
+    for i, w in enumerate(windows_ascii):
+        out[i] = tokenize_dna(w.ljust(window_length, b"N"), word_size)
+    return out

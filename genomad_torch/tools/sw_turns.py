@@ -18,6 +18,15 @@ turn`` JSON line, with the card's name and power limit and a digest of
 every case's forward result. Equal digests: the two trees' kernels agree
 bit for bit on these pairs. It needs the card and a checkout, with
 ``chip_smoke.py`` at its root.
+
+    python -m genomad_torch.tools.sw_turns OTHER --search
+
+times the search's cold start instead, in the same turns: the marker search
+at the real DB's 227,897 profiles, cold and steady (``chip_smoke
+.cold_and_steady``), then ``chip_smoke.annotate_phase`` on a fresh
+20,000-profile DB directory, each with its host seconds by stage
+(``prefilter_s``, ``prestage_s``, ``staging_s``, ...), and prints one ``#
+search turn`` JSON line with a digest of the hits.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import subprocess
 import sys
 import tarfile
 import tempfile
+import time
 from pathlib import Path
 
 # the checkout that holds this package (and chip_smoke.py, the cases)
@@ -52,9 +62,10 @@ def unpack(other: str, into: Path) -> Path:
     return into
 
 
-def turn(tree: Path, label: str) -> None:
+def turn(tree: Path, label: str, search: bool = False) -> None:
     """One turn, in a fresh process: ``tree``'s genomad_torch times ROOT's
-    chip_smoke cases and prints the ``# sw turn`` line."""
+    chip_smoke cases and prints the ``# sw turn`` line (``# search turn``
+    with ``search``)."""
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
@@ -70,6 +81,9 @@ def turn(tree: Path, label: str) -> None:
     spec.loader.exec_module(cs)
 
     _build.build(("sw",))
+    if search:
+        search_turn(cs, label, package)
+        return
     dev = torch.device("cuda")
     chunk = cs.sw_chunk_cases(cs.bench_db(cs.SW_DB_PROFILES), np.random.default_rng(cs.SEED + 2), dev)
     long = cs.sw_long_cases(np.random.default_rng(cs.SEED + 3), dev)
@@ -84,9 +98,62 @@ def turn(tree: Path, label: str) -> None:
     }), flush=True)
 
 
+def search_turn(cs, label: str, package: Path) -> None:
+    """One turn of ``--search``: the real-DB search cold and steady, the
+    host assembly of its buckets alone, then annotate, and the ``# search
+    turn`` line."""
+    import numpy as np
+    import torch
+
+    from genomad_torch import native
+    from genomad_torch.ops import protein_search as ps
+
+    if not hasattr(ps, "join_prestage"):  # a tree from before the prestage: no thread to wait for
+        ps.join_prestage = lambda timeout=None: True
+    # what chip_smoke's earlier phases leave ready: the C++ prefilter built, the card's context up
+    if native.get_library() is None:
+        raise RuntimeError(f"turn {label}: the C++ prefilter did not build")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    db, _, _ = cs.real_db()
+    names, seqs, _ = cs.bench_queries(db, cs.N_SEARCH_QUERIES)
+    runs = cs.cold_and_steady(names, seqs, db)
+    # the host part of staging alone: every bucket assembled, none uploaded
+    t0 = time.perf_counter()
+    bound = ps._bucket_bound(db.lengths)
+    for pb_i in np.unique(bound):
+        ids = np.where(bound == pb_i)[0]
+        for s in range(0, len(ids), ps._STAGE_CHUNK):
+            ps._assemble_bucket(db, ids[s : s + ps._STAGE_CHUNK], ps._BOUNDS[pb_i])
+    assemble_s = time.perf_counter() - t0
+    del db
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sw_turns_annotate_") as tmp:
+        annotate = cs.annotate_phase({}, Path(tmp), cs.bench_db(cs.SW_DB_PROFILES))
+    annotate_stats = dict(ps.STATS)
+    digest = hashlib.sha256(repr(sorted(runs["steady_hits"].items())).encode())
+
+    def seconds(stats: dict) -> dict:
+        return {k: v for k, v in stats.items() if k.endswith("_s")}
+
+    print(f"# search turn {label}: " + json.dumps({
+        "package": str(package), "card": cs.nvidia_smi(),
+        "search": {
+            "db_profiles": cs.REAL_DB_PROFILES, "queries": len(names),
+            "cold_s": runs["cold_s"], "steady_s": runs["steady_s"],
+            "cold_stages_s": seconds(runs["cold_stats"]), "steady_stages_s": seconds(runs["steady_stats"]),
+            "host_assembly_s (every bucket, no upload)": assemble_s,
+        },
+        "annotate": {"db_profiles": cs.SW_DB_PROFILES, "wall_s": annotate["wall_s"], "marker_hits": annotate["marker_hits"],
+                     "stages_s": seconds(annotate_stats)},
+        "hits_digest": digest.hexdigest()[:16],
+    }), flush=True)
+
+
 def parse_args(argv: list[str]) -> argparse.Namespace:
-    parser = argparse.ArgumentParser(description="K1's timed cases in turns between this checkout and OTHER.")
+    parser = argparse.ArgumentParser(description="K1's timed cases (or the search's cold start) in turns between this checkout and OTHER.")
     parser.add_argument("other", help="a git revision of this checkout, or a tar file of `git archive`")
+    parser.add_argument("--search", action="store_true", help="time the search's cold start and annotate, not K1's cases")
     parser.add_argument("--turn", metavar="LABEL", help=argparse.SUPPRESS)  # one turn of `other`, a tree
     return parser.parse_args(argv)
 
@@ -99,13 +166,15 @@ def main(argv: list[str] | None = None) -> int:
         print("sw_turns: CUDA is not available; the turns time K1 on the card.", file=sys.stderr)
         return 1
     if args.turn is not None:
-        turn(Path(args.other), args.turn)
+        turn(Path(args.other), args.turn, args.search)
         return 0
     with tempfile.TemporaryDirectory(prefix="sw_turns_") as tmp:
         trees = {"P": unpack(args.other, Path(tmp)), "C": ROOT}
         for letter in "PCCP":
             # by path, not -m: the turn's process imports no genomad_torch but its tree's
             cmd = [sys.executable, str(Path(__file__).resolve()), str(trees[letter]), "--turn", letter]
+            if args.search:
+                cmd.append("--search")
             subprocess.run(cmd, check=True)
     return 0
 

@@ -1,9 +1,8 @@
 """Runtime utilities: console/logging, file IO, the resume protocol and math
 primitives.
 
-Copied from ``genomad_tpu/utils.py`` (all but ``check_executables`` and
-``Console.status``, which no module of the port calls); behaviour and file
-formats are unchanged. Reference = apcamargo/genomad
+Copied from ``genomad_tpu/utils.py`` (all but ``Console.status``, which no
+module of the port calls); behaviour and file formats are unchanged. Reference = apcamargo/genomad
 v1.12.0:
   - compression sniffing / transparent open: genomad/utils.py:126-171
   - md5 + execution-info resume protocol:    genomad/utils.py:216-297
@@ -21,6 +20,7 @@ import json
 import lzma
 import os
 import re
+import shutil
 import sys
 from contextlib import contextmanager
 from datetime import datetime, timezone
@@ -94,6 +94,11 @@ def natsort(iterable):
             int(t) if t.isdigit() else t.lower() for t in re.split(r"(\d+)", str(s))
         ],
     )
+
+
+def check_executables(executables: list[str]) -> list[str]:
+    """The names in ``executables`` that are not on the PATH."""
+    return [e for e in executables if not shutil.which(e)]
 
 
 def get_md5(filepath, size=io.DEFAULT_BUFFER_SIZE) -> str:

@@ -256,3 +256,184 @@ def test_search_counts_its_stages_and_the_native_prefilter():
     if native.get_library() is not None:  # g++ present: the C++ prefilter served the search
         assert native.native_prefilter_batch.uses > uses
         assert native._LIB_PATH.parent.name == "build"
+
+
+# ---------------------------------------------------------------------------
+# The cold-start prestage (DBs above 4,096 profiles, one process)
+# ---------------------------------------------------------------------------
+
+
+def _prestage_case(max_len=60):
+    """The fixture of JAX's test_prestage_thread_path_large_db: 4,200
+    integral profiles and three planted queries (``max_len`` 300 spreads
+    the profiles over three length classes)."""
+    db = ProfileDB.synthetic(seed=55, n_profiles=4200, min_len=30, max_len=max_len, integral=True)
+    rng = np.random.default_rng(4)
+    names, seqs, targets = [], [], (7, 1033, 4100)
+    for qi, t in enumerate(targets):
+        names.append(f"g_{qi}")
+        seqs.append(_seq(_mutated(rng, db.consensus(t), 0.1)))
+    return db, names, seqs, targets
+
+
+def _count_builds(monkeypatch, delay: float = 0.0):
+    """Records the thread name and key of every bucket build; builds on the
+    prestage thread take ``delay`` seconds longer."""
+    import threading
+    import time
+
+    builds = []
+    real = tps._build_staged_bucket
+
+    def build(db, pb_i, device, shard=(0, 1)):
+        name = threading.current_thread().name
+        builds.append((name, (str(device), int(pb_i), tuple(shard))))
+        if name == tps.PRESTAGE_THREAD:
+            time.sleep(delay)
+        return real(db, pb_i, device, shard)
+
+    monkeypatch.setattr(tps, "_build_staged_bucket", build)
+    return builds
+
+
+@pytest.mark.parametrize("max_len", [60, 300])
+@pytest.mark.parametrize("profile_major", [False, True])
+def test_prestage_search_equals_jax_and_builds_each_bucket_once(monkeypatch, max_len, profile_major):
+    """The search starts the prestage thread in both modes; its hits equal
+    JAX's search (which prestages too), and every bucket class of the DB
+    is cached once and built once, whichever thread built it."""
+    db, names, seqs, targets = _prestage_case(max_len)
+    starts = []
+    real = tps._prestage
+    monkeypatch.setattr(tps, "_prestage", lambda *a: starts.append(a[1]) or real(*a))
+    builds = _count_builds(monkeypatch)
+    twin = _twin(db)
+    got = tps.search(names, seqs, twin, device="cpu", profile_major=profile_major)
+    assert tps.join_prestage(timeout=30)
+    assert got == jps.search(names, seqs, db)
+    assert [got[n][0] for n in names] == [str(db.names[t]) for t in targets]
+    assert starts == [[(torch.device("cpu"), (0, 1))]]
+    classes = np.unique(tps._bucket_bound(db.lengths))
+    assert len(classes) == (1 if max_len == 60 else 3)
+    want = sorted(("cpu", int(c), (0, 1)) for c in classes)
+    assert sorted(twin.__dict__["_torch_device_buckets"]) == want
+    assert sorted(key for _, key in builds) == want
+
+
+def test_prestage_on_a_mesh_stages_each_cells_shard(monkeypatch):
+    """On a (2, 2) mesh of ``cpu`` cells the prestage stages every bucket
+    class's two db shards (the keys the cells' aligners read), each once;
+    the hits equal JAX's unsharded search."""
+    from genomad_torch.parallel import mesh as tmesh
+
+    db, names, seqs, _ = _prestage_case(300)
+    builds = _count_builds(monkeypatch)
+    twin = _twin(db)
+    got = tps.search(names, seqs, twin, mesh=tmesh.make_mesh(2, 2, devices=["cpu"] * 4))
+    assert tps.join_prestage(timeout=30)
+    assert got == jps.search(names, seqs, db)
+    want = sorted(("cpu", int(c), (d, 2)) for c in np.unique(tps._bucket_bound(db.lengths)) for d in range(2))
+    assert sorted(twin.__dict__["_torch_device_buckets"]) == want
+    assert sorted(key for _, key in builds) == want
+
+
+def test_prestage_stops_after_a_search_that_raises(monkeypatch):
+    """A search whose prefilter raises stops its prestage thread after the
+    bucket in flight: the thread ends within seconds, with classes left
+    unstaged."""
+    from genomad_torch import native
+
+    db, names, seqs, _ = _prestage_case(300)
+    builds = _count_builds(monkeypatch, delay=0.5)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("prefilter failed")
+
+    monkeypatch.setattr(native, "native_prefilter_batch", broken)
+    twin = _twin(db)
+    with pytest.raises(RuntimeError, match="prefilter failed"):
+        tps.search(names, seqs, twin, device="cpu")
+    assert tps.join_prestage(timeout=5)
+    n_classes = len(np.unique(tps._bucket_bound(db.lengths)))
+    assert n_classes == 3 and len(builds) < n_classes
+    assert all(name == tps.PRESTAGE_THREAD for name, _ in builds)
+
+
+def test_no_prestage_at_4096_profiles_or_all_pairs(monkeypatch):
+    """The JAX condition: more than 4,096 profiles and the prefilter on.
+    At 4,096 profiles, and with skip_prefilter, no thread starts and the
+    calling thread stages what it aligns."""
+    import threading
+
+    starts = []
+    monkeypatch.setattr(tps, "_prestage", lambda *a: starts.append(a))
+    builds = _count_builds(monkeypatch)
+    db, names, seqs, _ = _prestage_case()
+    at_limit = ProfileDB.synthetic(seed=55, n_profiles=4096, min_len=30, max_len=60, integral=True)
+    ref, got = _both(names, seqs, at_limit)
+    assert got == ref and got
+    _, got = _both(names[:1], seqs[:1], db, skip_prefilter=True)
+    assert got
+    assert starts == []
+    assert builds and all(name == threading.current_thread().name for name, _ in builds)
+
+
+def test_search_sharded_small_shards_equal_jax():
+    """300 profiles in 2 shards: each shard of 150 falls under the
+    all-pairs threshold (256), so each shard search aligns every pair with
+    the stop rule off. The port's search_sharded equals JAX's. Recorded
+    (JAX behaviour, matched, not fixed): neither equals the unsharded
+    search, which prefilters. On these 70%-substituted homologs the shards
+    find every unsharded hit and two weak ones the prefilter drops."""
+    db = ProfileDB.synthetic(seed=77, n_profiles=300, min_len=60, max_len=150, integral=True)
+    rng = np.random.default_rng(12)
+    names, seqs = [], []
+    for qi in range(24):
+        cons = db.consensus(int(rng.integers(0, 300))).copy()
+        pos = rng.choice(len(cons), int(len(cons) * 0.7), replace=False)
+        cons[pos] = rng.integers(0, N_AA, len(pos))
+        names.append(f"g_{qi}")
+        seqs.append(_seq(cons))
+    ref = jps.search_sharded(names, seqs, db, 2)
+    got = tps.search_sharded(names, seqs, _twin(db), 2, device="cpu")
+    assert got == ref and ref
+    unsharded = jps.search(names, seqs, db)
+    assert tps.search(names, seqs, _twin(db), device="cpu") == unsharded
+    assert {n: ref[n] for n in unsharded} == unsharded
+    assert sorted(set(ref) - set(unsharded)) == ["g_13", "g_5"]
+
+
+def test_staging_and_stats_hold_under_racing_threads(monkeypatch):
+    """16 threads at a short switch interval stage the same buckets and
+    count into STATS at once: each bucket is built once, every thread gets
+    the cached bucket, and no count is lost."""
+    import sys
+    import threading
+
+    db = _twin(ProfileDB.synthetic(seed=3, n_profiles=600, min_len=30, max_len=300, integral=True))
+    classes = [int(c) for c in np.unique(tps._bucket_bound(db.lengths))]
+    builds = _count_builds(monkeypatch)
+    tps.STATS.clear()
+    got = []
+
+    def work():
+        for c in classes:
+            got.append((c, tps._get_staged_profiles(db, c, torch.device("cpu"))))
+        for _ in range(2000):
+            tps._count("race", 1)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(key for _, key in builds) == [("cpu", c, (0, 1)) for c in classes]
+    cache = db.__dict__["_torch_device_buckets"]
+    assert len(got) == 16 * len(classes) and all(b is cache[("cpu", c, (0, 1))] for c, b in got)
+    assert tps.STATS["race"] == 16 * 2000
