@@ -1,0 +1,6 @@
+"""Input Mbp of every job started in the window over the time from the
+window's start to the last job's end, for the ``end-to-end`` command."""
+
+
+def read(ctx):
+    return ctx.mbp / ctx.window_s
