@@ -19,6 +19,7 @@ from pathlib import Path
 import click
 
 import genomad_torch
+from genomad_torch import trace
 from genomad_torch.utils import get_n_available_cpus
 
 CONTEXT_SETTINGS = dict(help_option_names=["-h", "--help"])
@@ -274,6 +275,7 @@ def end_to_end(
     )
 
 
+@trace.spanned("end_to_end")
 def run_end_to_end(
     input,
     output,
@@ -306,7 +308,11 @@ def run_end_to_end(
     PyTorch versions of the kernels). ``mesh``: a ``parallel.mesh.Mesh``
     for the marker and integrase searches and both NN passes, as in the
     JAX package; None leaves each module on ``device``, and with neither
-    given the marker search takes ``annotate.default_search_mesh()``."""
+    given the marker search takes ``annotate.default_search_mesh()``.
+
+    While a ``torch.profiler`` session records, the run is one job of the
+    port's spans (``genomad_torch.trace``): ``end_to_end``, with each
+    module's ``module.<name>`` inside it, on the threads they run on."""
     from genomad_torch.modules import (
         aggregated_classification as agg_mod,
         annotate as annotate_mod,
@@ -344,7 +350,7 @@ def run_end_to_end(
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(max_workers=1) as ex:
-            fut = ex.submit(_annotate)
+            fut = ex.submit(trace.carry(_annotate))
             nn_mod.main(
                 input, output, single_window=single_window,
                 batch_size=batch_size, restart=restart, threads=threads,

@@ -20,6 +20,10 @@ The forward-backward pass is a Python loop over gene positions in f32 (the
 JAX package's ``jax.lax.scan``; it never enables x64), vectorized over a
 padded batch of contigs on ``device``: about ten small operations per step
 over the longest contig's gene count. Plain PyTorch: JAX runs it as XLA.
+Counters (``genomad_torch.trace``): ``crf.contigs`` scored and ``crf.steps``,
+the positions stepped by the forward and the backward loop of a batch
+(2 x (T - 1) for T genes; each position is stepped for the scored and the
+background pass).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from genomad_torch import trace
 from genomad_torch.device import resolve_device
 
 # [attribute (spm_v, spm_c), label (V, host)]
@@ -106,6 +111,7 @@ def score_provirus_genes_batch(spm_v_list, spm_c_list, device=None) -> list[np.n
     lengths = [len(v) for v in spm_v_list]
     T = max(max(lengths), 1)
     B = len(spm_v_list)
+    trace.count_many({"crf.contigs": B, "crf.steps": 2 * (T - 1)})
     spm_v = np.zeros((B, T), np.float32)
     spm_c = np.zeros((B, T), np.float32)
     mask = np.zeros((B, T), np.float32)

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-from genomad_torch import sequence, utils
+from genomad_torch import sequence, trace, utils
 from genomad_torch.models import fusion
 from genomad_torch.paths import GenomadOutputs
 
@@ -29,6 +29,7 @@ def _write_scores_tsv(path, names, predictions):
             fout.write(f"{name}\t{formatted}\n")
 
 
+@trace.spanned("module.aggregated_classification")
 def main(input_path, output_path, restart=False, verbose=True):
     input_path, output_path = Path(input_path), Path(output_path)
     output_path.mkdir(exist_ok=True)

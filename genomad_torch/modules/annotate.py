@@ -18,7 +18,7 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
-from genomad_torch import database, sequence, taxonomy, utils
+from genomad_torch import database, sequence, taxonomy, trace, utils
 from genomad_torch.device import resolve_device
 from genomad_torch.ops import gene_calling, protein_search
 from genomad_torch.paths import GenomadOutputs
@@ -114,6 +114,7 @@ def write_genes_output(genes_output, database_obj, prodigal_obj, gene_matches: d
             )
 
 
+@trace.spanned("module.annotate")
 def main(
     input_path,
     output_path,

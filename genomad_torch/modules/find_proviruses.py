@@ -23,7 +23,10 @@ Port of ``genomad_tpu/modules/find_proviruses.py``: the gene tables,
 island, edge and acceptance logic and every output file are the JAX
 module's. Everything runs on ``device`` (None = the card; raises without
 one, before anything is written); ``mesh`` goes to the integrase search, as
-in the JAX module.
+in the JAX module. Spans (``genomad_torch.trace``): ``module.find_proviruses``
+around ``fp.integrase_search``, ``fp.trna``, ``fp.crf`` (through the scores'
+copy to the host) and ``fp.tables`` (the provirus tables, sequences and
+taxonomy).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from genomad_torch import database, sequence, taxonomy, utils
+from genomad_torch import database, sequence, taxonomy, trace, utils
 from genomad_torch.device import resolve_device
 from genomad_torch.models import crf
 from genomad_torch.ops import trna as trna_lib
@@ -286,6 +289,7 @@ def yield_proviruses(genetable: GeneTable, provirus_labels, threshold, in_edge_t
         offset += count
 
 
+@trace.spanned("module.find_proviruses")
 def main(
     input_path,
     output_path,
@@ -421,33 +425,35 @@ def main(
     elif not skip_integrase_identification:
         from genomad_torch.modules import annotate as annotate_mod
 
-        sequence.filter_fasta(
-            outputs.annotate_proteins_output,
-            outputs.find_proviruses_mmseqs2_input,
-            target_contigs,
-            ignore_gene_suffix=True,
-        )
-        annotate_mod.run_search(
-            outputs.find_proviruses_mmseqs2_input,
-            outputs.find_proviruses_mmseqs2_output,
-            database_obj,
-            use_integrase_db=True,
-            sensitivity=sensitivity,
-            evalue=evalue,
-            device=device,
-            threads=threads,
-            mesh=mesh,
-        )
+        with trace.span("fp.integrase_search"):
+            sequence.filter_fasta(
+                outputs.annotate_proteins_output,
+                outputs.find_proviruses_mmseqs2_input,
+                target_contigs,
+                ignore_gene_suffix=True,
+            )
+            annotate_mod.run_search(
+                outputs.find_proviruses_mmseqs2_input,
+                outputs.find_proviruses_mmseqs2_output,
+                database_obj,
+                use_integrase_db=True,
+                sensitivity=sensitivity,
+                evalue=evalue,
+                device=device,
+                threads=threads,
+                mesh=mesh,
+            )
         console.log(f"Integrases written to {outputs.find_proviruses_mmseqs2_output.name}.")
 
     # tRNA search (find_proviruses.py:629-655)
     if skip and outputs.find_proviruses_aragorn_output.exists():
         console.log("Skipping tRNA identification (previous output found).")
     elif not skip_trna_identification:
-        sequence.filter_fasta(input_path, outputs.find_proviruses_aragorn_input, target_contigs)
-        trna_lib.Aragorn(
-            outputs.find_proviruses_aragorn_input, outputs.find_proviruses_aragorn_output
-        ).run_parallel_aragorn(threads)
+        with trace.span("fp.trna"):
+            sequence.filter_fasta(input_path, outputs.find_proviruses_aragorn_input, target_contigs)
+            trna_lib.Aragorn(
+                outputs.find_proviruses_aragorn_input, outputs.find_proviruses_aragorn_output
+            ).run_parallel_aragorn(threads)
         console.log(f"tRNAs written to {outputs.find_proviruses_aragorn_output.name}.")
 
     # CRF tagging + island logic (find_proviruses.py:657-695)
@@ -462,9 +468,10 @@ def main(
         )
         if gt.seq_name in target_contigs
     ]
-    all_scores = crf.score_provirus_genes_batch(
-        [gt.spm_v for gt in gene_tables], [gt.spm_c for gt in gene_tables], device=device
-    )
+    with trace.span("fp.crf"):
+        all_scores = crf.score_provirus_genes_batch(
+            [gt.spm_v for gt in gene_tables], [gt.spm_c for gt in gene_tables], device=device
+        )
     for genetable, scores in zip(gene_tables, all_scores):
         labels = tag_provirus_genes(scores, crf_threshold, genetable)
         if not skip_integrase_identification:
@@ -483,76 +490,77 @@ def main(
             )
     console.log("Provirus regions identified.")
 
-    # provirus.tsv (find_proviruses.py:697-729)
-    with open(outputs.find_proviruses_output, "w") as fout:
-        fout.write(
-            "seq_name\tsource_seq\tstart\tend\tlength\tn_genes\t"
-            "v_vs_c_score\tin_seq_edge\tintegrases\n"
+    with trace.span("fp.tables"):
+        # provirus.tsv (find_proviruses.py:697-729)
+        with open(outputs.find_proviruses_output, "w") as fout:
+            fout.write(
+                "seq_name\tsource_seq\tstart\tend\tlength\tn_genes\t"
+                "v_vs_c_score\tin_seq_edge\tintegrases\n"
+            )
+            for proviruses in provirus_dict.values():
+                for p in proviruses:
+                    integrase_genes = (
+                        ";".join(f"{p.provirus_name}_{i + 1}" for i in p.integrase_indices)
+                        if p.has_integrase
+                        else "NA"
+                    )
+                    fout.write(
+                        f"{p.provirus_name}\t{p.seq_name}\t{p.start}\t{p.end}\t"
+                        f"{p.end - p.start + 1}\t{p.n_genes}\t{p.v_vs_c_score:.4f}\t"
+                        f"{p.is_edge}\t{integrase_genes}\n"
+                    )
+
+        # excised nucleotide sequences (find_proviruses.py:731-746)
+        with open(outputs.find_proviruses_nucleotide_output, "w") as fout:
+            for seq in sequence.read_fasta(input_path):
+                for p in provirus_dict.get(seq.accession, []):
+                    fout.write(str(sequence.Sequence(p.provirus_name, seq.seq[p.start - 1 : p.end])))
+
+        # provirus proteins (find_proviruses.py:748-775)
+        with open(outputs.find_proviruses_proteins_output, "w") as fout:
+            for seq in sequence.read_fasta(outputs.annotate_proteins_output):
+                contig = seq.accession.rsplit("_", 1)[0]
+                if contig not in provirus_dict:
+                    continue
+                start = int(seq.header.split()[2])
+                end = int(seq.header.split()[4])
+                for p in provirus_dict[contig]:
+                    if start >= p.start and end <= p.end:
+                        gene_number = seq.accession.rsplit("_", 1)[1]
+                        header = f"{p.provirus_name}_{gene_number} {seq.header.split(maxsplit=1)[1]}"
+                        fout.write(str(sequence.Sequence(header, seq.seq)))
+                        break
+
+        # provirus genes table (find_proviruses.py:777-810). NOTE: the header
+        # has 16 columns but data rows carry the full 20 columns of the
+        # annotate table with the gene renamed — reference behavior preserved
+        # because taxonomy parses fields from fixed positions.
+        with open(outputs.find_proviruses_genes_output, "w") as fout:
+            fout.write(
+                "gene\tstart\tend\tlength\tstrand\tgc_content\tgenetic_code\trbs_motif\t"
+                "marker\tevalue\tbitscore\tuscg\ttaxid\ttaxname\tannotation_accessions\t"
+                "annotation_description\n"
+            )
+            for line in utils.read_file(outputs.annotate_genes_output, skip_header=True):
+                fields = line.strip("\n").split("\t")
+                contig = fields[0].rsplit("_", 1)[0]
+                if contig not in provirus_dict:
+                    continue
+                start, end = int(fields[1]), int(fields[2])
+                for p in provirus_dict[contig]:
+                    if start >= p.start and end <= p.end:
+                        gene_number = fields[0].rsplit("_", 1)[1]
+                        fout.write(f"{p.provirus_name}_{gene_number}\t" + "\t".join(fields[1:]) + "\n")
+                        break
+
+        # provirus taxonomy (find_proviruses.py:812-825)
+        taxonomy.write_taxonomic_assignment(
+            outputs.find_proviruses_taxonomy_output,
+            outputs.find_proviruses_genes_output,
+            database_obj,
+            lenient_taxonomy=lenient_taxonomy,
+            full_ictv_lineage=full_ictv_lineage,
         )
-        for proviruses in provirus_dict.values():
-            for p in proviruses:
-                integrase_genes = (
-                    ";".join(f"{p.provirus_name}_{i + 1}" for i in p.integrase_indices)
-                    if p.has_integrase
-                    else "NA"
-                )
-                fout.write(
-                    f"{p.provirus_name}\t{p.seq_name}\t{p.start}\t{p.end}\t"
-                    f"{p.end - p.start + 1}\t{p.n_genes}\t{p.v_vs_c_score:.4f}\t"
-                    f"{p.is_edge}\t{integrase_genes}\n"
-                )
-
-    # excised nucleotide sequences (find_proviruses.py:731-746)
-    with open(outputs.find_proviruses_nucleotide_output, "w") as fout:
-        for seq in sequence.read_fasta(input_path):
-            for p in provirus_dict.get(seq.accession, []):
-                fout.write(str(sequence.Sequence(p.provirus_name, seq.seq[p.start - 1 : p.end])))
-
-    # provirus proteins (find_proviruses.py:748-775)
-    with open(outputs.find_proviruses_proteins_output, "w") as fout:
-        for seq in sequence.read_fasta(outputs.annotate_proteins_output):
-            contig = seq.accession.rsplit("_", 1)[0]
-            if contig not in provirus_dict:
-                continue
-            start = int(seq.header.split()[2])
-            end = int(seq.header.split()[4])
-            for p in provirus_dict[contig]:
-                if start >= p.start and end <= p.end:
-                    gene_number = seq.accession.rsplit("_", 1)[1]
-                    header = f"{p.provirus_name}_{gene_number} {seq.header.split(maxsplit=1)[1]}"
-                    fout.write(str(sequence.Sequence(header, seq.seq)))
-                    break
-
-    # provirus genes table (find_proviruses.py:777-810). NOTE: the header
-    # has 16 columns but data rows carry the full 20 columns of the
-    # annotate table with the gene renamed — reference behavior preserved
-    # because taxonomy parses fields from fixed positions.
-    with open(outputs.find_proviruses_genes_output, "w") as fout:
-        fout.write(
-            "gene\tstart\tend\tlength\tstrand\tgc_content\tgenetic_code\trbs_motif\t"
-            "marker\tevalue\tbitscore\tuscg\ttaxid\ttaxname\tannotation_accessions\t"
-            "annotation_description\n"
-        )
-        for line in utils.read_file(outputs.annotate_genes_output, skip_header=True):
-            fields = line.strip("\n").split("\t")
-            contig = fields[0].rsplit("_", 1)[0]
-            if contig not in provirus_dict:
-                continue
-            start, end = int(fields[1]), int(fields[2])
-            for p in provirus_dict[contig]:
-                if start >= p.start and end <= p.end:
-                    gene_number = fields[0].rsplit("_", 1)[1]
-                    fout.write(f"{p.provirus_name}_{gene_number}\t" + "\t".join(fields[1:]) + "\n")
-                    break
-
-    # provirus taxonomy (find_proviruses.py:812-825)
-    taxonomy.write_taxonomic_assignment(
-        outputs.find_proviruses_taxonomy_output,
-        outputs.find_proviruses_genes_output,
-        database_obj,
-        lenient_taxonomy=lenient_taxonomy,
-        full_ictv_lineage=full_ictv_lineage,
-    )
 
     if cleanup:
         for f in (outputs.find_proviruses_mmseqs2_input, outputs.find_proviruses_aragorn_input):

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-from genomad_torch import database, sequence, utils
+from genomad_torch import database, sequence, trace, utils
 from genomad_torch.device import resolve_device
 from genomad_torch.models import forest as forest_lib
 from genomad_torch.ops import features as features_lib
@@ -47,6 +47,7 @@ def _classify(features: np.ndarray, forest: forest_lib.Forest, device) -> np.nda
     return utils.softmax(margins, temperature=2)
 
 
+@trace.spanned("module.marker_classification")
 def main(input_path, output_path, database_path, restart=False, threads=None, verbose=True, device=None):
     device = resolve_device(device)
     input_path, output_path = Path(input_path), Path(output_path)

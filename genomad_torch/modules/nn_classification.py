@@ -7,7 +7,12 @@ encoded-sequence cache dir, execution-info JSON), same skip/resume rules, and
 the same window/merge numerics. The compute path is the PyTorch IGLOO model
 (genomad_torch.models.igloo) with its hand-written kernels. ``device=None``
 runs on the card and raises without one; ``device="cpu"`` runs the plain
-PyTorch versions of the kernels.
+PyTorch versions of the kernels. Spans (``genomad_torch.trace``):
+``module.nn_classification`` around ``nn.check_fasta``, ``nn.encode``,
+``nn.cache_write`` (the window cache's compressed write), ``nn.model_load``,
+``nn.inference`` and ``nn.tables`` (the scores' npz and tsv); the input's
+``md5`` for the execution record; counters ``nn.windows`` and
+``nn.cache_bytes``.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from pathlib import Path
 
 import numpy as np
 
-from genomad_torch import sequence, utils
+from genomad_torch import sequence, trace, utils
 from genomad_torch.device import resolve_device
 from genomad_torch.models import igloo, weights
 from genomad_torch.ops import nn_pipeline
@@ -43,18 +48,22 @@ def _classify_fasta(fasta_path, cache_dir, cache_npz, id_key, single_window, bat
         if cache_dir.is_dir():
             shutil.rmtree(cache_dir)
         cache_dir.mkdir(parents=True)
-        with console.timer("window-encoding"):
+        with console.timer("window-encoding", span="nn.encode"):
             bases, names, ids = nn_pipeline.encode_windows(fasta_path, single_window)
-        np.savez_compressed(
-            cache_npz,
-            bases=bases,
-            **{f"{id_key}_names": names, f"{id_key}_ids": ids},
-        )
+        with trace.span("nn.cache_write"):
+            np.savez_compressed(
+                cache_npz,
+                bases=bases,
+                **{f"{id_key}_names": names, f"{id_key}_ids": ids},
+            )
+        trace.count("nn.cache_bytes", cache_npz.stat().st_size)
         console.log(f"Encoded {bases.shape[0]} windows from {len(names)} sequences.")
     if not len(names):
         return names, np.zeros((0, igloo.N_CLASSES), dtype=np.float32)
-    model = igloo.IglooClassifier(weights.load_params(console), device=device)
-    with console.timer("nn-inference"):
+    trace.count("nn.windows", len(bases))
+    with trace.span("nn.model_load"):
+        model = igloo.IglooClassifier(weights.load_params(console), device=device)
+    with console.timer("nn-inference", span="nn.inference"):
         # batch progress display with time-remaining, matching the
         # reference's NN prediction bar (nn_classification.py:300-318)
         if console.verbose and getattr(console, "_rich", None) is not None:
@@ -82,6 +91,7 @@ def _classify_fasta(fasta_path, cache_dir, cache_npz, id_key, single_window, bat
     return names, predictions
 
 
+@trace.spanned("module.nn_classification")
 def main(
     input_path,
     output_path,
@@ -157,7 +167,9 @@ def main(
         descriptions,
     )
 
-    if not sequence.check_fasta(input_path):
+    with trace.span("nn.check_fasta"):
+        fasta_ok = sequence.check_fasta(input_path)
+    if not fasta_ok:
         console.error(
             f"{input_path} is either empty or contains multiple entries with "
             "the same identifier. Please check your input FASTA file."
@@ -203,13 +215,15 @@ def main(
         if not len(contig_names):
             console.error("No sequences were found. Please check your input FASTA.")
             sys.exit(1)
-        np.savez_compressed(
-            outputs.nn_classification_npz_output,
-            contig_names=contig_names,
-            predictions=contig_predictions,
-        )
+        with trace.span("nn.tables"):
+            np.savez_compressed(
+                outputs.nn_classification_npz_output,
+                contig_names=contig_names,
+                predictions=contig_predictions,
+            )
         console.log(f"Sequence classification written to {outputs.nn_classification_npz_output.name}.")
-    _write_scores_tsv(outputs.nn_classification_output, contig_names, contig_predictions)
+    with trace.span("nn.tables"):
+        _write_scores_tsv(outputs.nn_classification_output, contig_names, contig_predictions)
     console.log(f"Sequence classification written to {outputs.nn_classification_output.name}.")
 
     # --- proviruses (second pass, reference: nn_classification.py:354-425) ---
@@ -233,14 +247,16 @@ def main(
                 console,
                 skip,
             )
-            np.savez_compressed(
-                outputs.provirus_nn_classification_npz_output,
-                provirus_names=provirus_names,
-                predictions=provirus_predictions,
+            with trace.span("nn.tables"):
+                np.savez_compressed(
+                    outputs.provirus_nn_classification_npz_output,
+                    provirus_names=provirus_names,
+                    predictions=provirus_predictions,
+                )
+        with trace.span("nn.tables"):
+            _write_scores_tsv(
+                outputs.provirus_nn_classification_output, provirus_names, provirus_predictions
             )
-        _write_scores_tsv(
-            outputs.provirus_nn_classification_output, provirus_names, provirus_predictions
-        )
         console.log(f"Provirus classification written to {outputs.provirus_nn_classification_output.name}.")
 
     if cleanup:

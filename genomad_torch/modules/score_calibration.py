@@ -15,7 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-from genomad_torch import utils
+from genomad_torch import trace, utils
 from genomad_torch.models import fusion
 from genomad_torch.paths import GenomadData, GenomadOutputs
 
@@ -41,6 +41,7 @@ def _write_scores_tsv(path, names, predictions):
             fout.write(f"{name}\t{c:.4f}\t{p:.4f}\t{v:.4f}\n")
 
 
+@trace.spanned("module.score_calibration")
 def main(input_path, output_path, composition="auto", force_auto=False, verbose=True):
     input_path, output_path = Path(input_path), Path(output_path)
     output_path.mkdir(exist_ok=True)

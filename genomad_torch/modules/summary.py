@@ -20,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-from genomad_torch import sequence, utils
+from genomad_torch import sequence, trace, utils
 from genomad_torch.paths import GenomadOutputs
 
 
@@ -111,6 +111,7 @@ def flag_sequences(
     return np.array(selected_names)[keep], np.array(selected_scores)[keep], fdr_array[keep]
 
 
+@trace.spanned("module.summary")
 def main(
     input_path,
     output_path,

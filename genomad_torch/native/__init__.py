@@ -1,8 +1,12 @@
 """Native (C++) host-side components.
 
-A copy of ``genomad_tpu/native`` with one change: the shared library is
-compiled on first use with g++ (-O3 -march=native) into the port's build
-dir (``genomad_torch/build/``, gitignored, or the user cache when the
+A copy of ``genomad_tpu/native`` with two changes. ``prefilter_batch``
+returns its own counts (queries, index hits, expanded codes, candidates,
+the workers' seconds and the call's thread slots) through an out-array,
+on every call, in place of the JAX copy's stderr report under an
+environment switch. And the shared library is compiled on first use
+with g++ (-O3 -march=native) into the port's build dir
+(``genomad_torch/build/``, gitignored, or the user cache when the
 installed package cannot be written: ``genomad_torch.build_dir``), not
 next to the source, under a name that hashes the source and the flags
 (``genomad_torch.build_dir.library_name``, as for the kernels), and the
@@ -11,7 +15,8 @@ so concurrent first uses never load a half-written library. Every native entry
 point has a pure numpy fallback in genomad_torch.ops, so the package works
 without a toolchain; the native path is selected automatically when
 available. ``native_prefilter_batch.uses`` counts the calls the native
-library served.
+library served; each call adds the library's own counts to the port's
+counters (``genomad_torch.trace``, ``prefilter.*``).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
+from genomad_torch import trace
 from genomad_torch.build_dir import build_dir, library_name
 
 _DIR = Path(__file__).parent
@@ -85,6 +91,7 @@ def get_library():
         ctypes.POINTER(ctypes.c_int64),   # out_counts (uncapped totals)
         ctypes.c_int64,                   # max_out_per_query
         ctypes.c_int32,                   # n_threads
+        ctypes.POINTER(ctypes.c_double),  # out_work (6)
     ]
     lib.prefilter_query.restype = ctypes.c_int64
     lib.prefilter_query.argtypes = [
@@ -137,7 +144,8 @@ def native_prefilter_batch(
     Returns (per-query candidate id arrays sorted by ungapped score
     descending, per-query score arrays in the same order, total dropped
     over the max_out_per_query cap), or None when the native library is
-    unavailable.
+    unavailable. Counts ``prefilter.queries``, ``.hits``, ``.codes``,
+    ``.candidates``, ``.thread_s`` and ``.slot_s`` (``genomad_torch.trace``).
     """
     lib = get_library()
     if lib is None or not residues_list:
@@ -163,6 +171,7 @@ def native_prefilter_batch(
     out = np.zeros((n_queries, max_out_per_query), np.int32)
     out_scores = np.zeros((n_queries, max_out_per_query), np.float32)
     counts = np.zeros(n_queries, np.int64)
+    work = np.zeros(len(WORK_KEYS), np.float64)
     keepalive: list = []
     if bias_list is not None:
         bias_all = np.ascontiguousarray(np.concatenate(bias_list), np.int32)
@@ -197,7 +206,9 @@ def native_prefilter_batch(
         _ptr(counts, ctypes.c_int64),
         max_out_per_query,
         int(n_threads),
+        _ptr(work, ctypes.c_double),
     )
+    trace.count_many(dict(zip(WORK_KEYS, work.tolist())))
     written = np.minimum(counts, max_out_per_query)
     dropped = int((counts - written).sum())
     ids = [out[q, : written[q]].copy() for q in range(n_queries)]
@@ -207,6 +218,10 @@ def native_prefilter_batch(
 
 
 native_prefilter_batch.uses = 0
+
+# prefilter_batch's out_work, in order
+WORK_KEYS = ("prefilter.queries", "prefilter.hits", "prefilter.codes", "prefilter.candidates",
+             "prefilter.thread_s", "prefilter.slot_s")
 
 
 def _pssm_f32_arg(db, keepalive: list):

@@ -60,7 +60,6 @@
 #include <chrono>
 #include <cmath>
 #include <cstdint>
-#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <map>
@@ -240,25 +239,6 @@ const ExpTables* get_tables(const float* subst, float thr) {
     return &it->second;
 }
 
-// --- optional stage stats (GENOMAD_PREFILTER_STATS=1) ----------------------
-
-struct Stats {
-    std::atomic<int64_t> hits{0};
-    std::atomic<int64_t> codes{0};
-    std::atomic<int64_t> cands{0};
-    std::atomic<int64_t> enum_ns{0};
-    std::atomic<int64_t> scan_ns{0};
-    std::atomic<int64_t> emit_ns{0};
-};
-Stats g_stats;
-bool stats_enabled() {
-    static const bool on = [] {
-        const char* v = std::getenv("GENOMAD_PREFILTER_STATS");
-        return v && v[0] == '1';
-    }();
-    return on;
-}
-
 inline uint32_t f32_bits(float f) {
     uint32_t u;
     std::memcpy(&u, &f, 4);
@@ -364,16 +344,15 @@ static void prefilter_group_impl(
                              // lower to absorb positive bias sums)
     int64_t* out_counts,
     int64_t max_out,
-    Scratch& scratch) {
+    Scratch& scratch,
+    int64_t* work) {  // += {index hits, expanded codes, candidates}
     const bool expand = tables != nullptr;
-    const bool stats = stats_enabled();
     scratch.ensure(n_profiles);
     uint32_t* last = scratch.last.data();
     uint32_t* cand_mark = scratch.cand_mark.data();
     auto& cand = scratch.cand;
     cand.clear();
     int64_t n_hits = 0, n_exp_codes = 0;
-    auto t_enum0 = std::chrono::steady_clock::now();
 
     // -- 1-2. per-query expansion + index lookups -> stamp-table hits ----
     // (identical per-query semantics; candidates carry their query index
@@ -511,7 +490,6 @@ static void prefilter_group_impl(
         if (h2) process_range(p2.b, p2.e, p2.q);  // drain the pipeline
         if (h1) process_range(p1.b, p1.e, p1.q);
     }
-    auto t_enum1 = std::chrono::steady_clock::now();
 
     // -- 3. radix-order the WHOLE GROUP's candidates by profile id
     // (ascending-address PSSM sweep; stable, so per-query relative order
@@ -718,7 +696,6 @@ static void prefilter_group_impl(
                 scratch.sel_ids_g[g].push_back(p);
         }
     }
-    auto t_scan1 = std::chrono::steady_clock::now();
     // -- 4. per-query emit: score desc, profile id asc on ties (MMseqs2's
     // prefilter result order, consumed by --max-rejected)
     for (int g = 0; g < G; ++g) {
@@ -742,24 +719,9 @@ static void prefilter_group_impl(
         }
         out_counts[g] = static_cast<int64_t>(selected.size());
     }
-    if (stats) {
-        auto t_end = std::chrono::steady_clock::now();
-        g_stats.hits += n_hits;
-        g_stats.codes += n_exp_codes;
-        g_stats.cands += static_cast<int64_t>(cand.size());
-        g_stats.enum_ns +=
-            std::chrono::duration_cast<std::chrono::nanoseconds>(t_enum1 -
-                                                                 t_enum0)
-                .count();
-        g_stats.scan_ns +=
-            std::chrono::duration_cast<std::chrono::nanoseconds>(t_scan1 -
-                                                                 t_enum1)
-                .count();
-        g_stats.emit_ns +=
-            std::chrono::duration_cast<std::chrono::nanoseconds>(t_end -
-                                                                 t_scan1)
-                .count();
-    }
+    work[0] += n_hits;
+    work[1] += n_exp_codes;
+    work[2] += static_cast<int64_t>(cand.size());
 }
 
 int64_t prefilter_query(
@@ -790,9 +752,10 @@ int64_t prefilter_query(
     QueryView qv{query_codes, n_codes, residues, query_length, out_profiles,
                  out_scores, bias};
     int64_t count = 0;
+    int64_t work[3] = {0, 0, 0};
     prefilter_group_impl(code_table, entry_pairs, n_profiles, &qv, 1, pssm,
                          pssm8, offsets, lengths, min_ungapped_score, tables,
-                         kmer_thr, &count, max_out, scratch);
+                         kmer_thr, &count, max_out, scratch, work);
     return count;
 }
 
@@ -801,7 +764,10 @@ int64_t prefilter_query(
 // written per query into out_profiles/out_scores[q * max_out_per_query ..]
 // with TOTAL (uncapped) selection counts in out_counts[q] — the caller
 // clamps and logs any excess as dropped. Replaces the reference's
-// `--threads` knob for this stage (genomad/mmseqs2.py:83).
+// `--threads` knob for this stage (genomad/mmseqs2.py:83). out_work gets
+// the call's counts: {queries, index hits, expanded codes, candidates,
+// the workers' seconds in their groups summed over threads, the call's
+// wall seconds times n_threads}.
 int64_t prefilter_batch(
     const int32_t* code_table,
     const int32_t* entry_pairs,  // interleaved [profile, position]
@@ -825,15 +791,23 @@ int64_t prefilter_batch(
     float* out_scores,      // (n_queries, max_out_per_query) or nullptr
     int64_t* out_counts,    // (n_queries)
     int64_t max_out_per_query,
-    int32_t n_threads) {
+    int32_t n_threads,
+    double* out_work) {  // (6)
     if (n_threads < 1) n_threads = 1;
+    using clock = std::chrono::steady_clock;
+    const auto t_call = clock::now();
     const ExpTables* tables =
         (subst != nullptr && kmer_thr < 1e30f)
             ? get_tables(subst, kmer_thr - kmer_slack)
             : nullptr;
     std::atomic<int64_t> next{0};
+    std::mutex work_mu;
+    int64_t work_total[3] = {0, 0, 0};
+    double group_s = 0.0;
     auto worker = [&]() {
         Scratch scratch;
+        int64_t work[3] = {0, 0, 0};
+        clock::duration busy{0};
         for (;;) {
             const int64_t q0 = next.fetch_add(G_MAX);
             if (q0 >= n_queries) break;
@@ -852,34 +826,28 @@ int64_t prefilter_batch(
                                : nullptr,
                     bias_all ? bias_all + residue_offsets[q] : nullptr};
             }
+            const auto t0 = clock::now();
             prefilter_group_impl(code_table, entry_pairs, n_profiles, qv, G,
                                  pssm, pssm8, offsets, lengths,
                                  min_ungapped_score, tables, kmer_thr,
-                                 out_counts + q0, max_out_per_query, scratch);
+                                 out_counts + q0, max_out_per_query, scratch,
+                                 work);
+            busy += clock::now() - t0;
         }
+        std::lock_guard<std::mutex> lock(work_mu);
+        for (int k = 0; k < 3; ++k) work_total[k] += work[k];
+        group_s += std::chrono::duration<double>(busy).count();
     };
     std::vector<std::thread> threads;
     for (int32_t t = 1; t < n_threads; ++t) threads.emplace_back(worker);
     worker();
     for (auto& t : threads) t.join();
-    if (stats_enabled() && n_queries > 4) {
-        std::fprintf(
-            stderr,
-            "[prefilter stats] %lld queries (%s scan): %.2f M hits (%.0f/q), "
-            "%.2f M expanded codes (%.0f/q), %.0f cand/q; "
-            "enum %.1f ms/q, scan %.1f ms/q, emit %.1f ms/q "
-            "(thread-summed)\n",
-            static_cast<long long>(n_queries), pssm8 ? "int8" : "f32",
-            g_stats.hits.load() / 1e6, g_stats.hits.load() / double(n_queries),
-            g_stats.codes.load() / 1e6,
-            g_stats.codes.load() / double(n_queries),
-            g_stats.cands.load() / double(n_queries),
-            g_stats.enum_ns.load() / 1e6 / n_queries,
-            g_stats.scan_ns.load() / 1e6 / n_queries,
-            g_stats.emit_ns.load() / 1e6 / n_queries);
-        g_stats.hits = g_stats.codes = g_stats.cands = 0;
-        g_stats.enum_ns = g_stats.scan_ns = g_stats.emit_ns = 0;
-    }
+    out_work[0] = static_cast<double>(n_queries);
+    for (int k = 0; k < 3; ++k)
+        out_work[1 + k] = static_cast<double>(work_total[k]);
+    out_work[4] = group_s;
+    out_work[5] = std::chrono::duration<double>(clock::now() - t_call).count() *
+                  n_threads;
     return n_queries;
 }
 

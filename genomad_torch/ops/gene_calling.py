@@ -27,7 +27,8 @@ prodigal's start/stop decisions depend on its trained log-likelihood
 tables. The output contract, metadata fields, and downstream consumers are
 fully compatible.
 
-A copy of ``genomad_tpu/ops/gene_calling.py``.
+A copy of ``genomad_tpu/ops/gene_calling.py``, with the port's spans and
+counters (``genomad_torch.trace``) in ``Prodigal.run_parallel_prodigal``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from pathlib import Path
 import numpy as np
 
 from genomad_torch import sequence as seqlib
+from genomad_torch import trace
 
 MIN_GENE_LENGTH = 90  # nt, prodigal default
 MAX_OVERLAP = 60  # nt, same-strand overlap allowance
@@ -887,6 +889,9 @@ class Prodigal:
     ops, so threads scale without the fork-under-threads deadlock
     hazard a process pool carries (and without pickling the trained
     finder). Blocks are written back in deterministic input order.
+    Spans ``gene_calling.train`` (the finder's training on the whole
+    input) and ``gene_calling.call`` (the calls and their write); counters
+    ``gene_calling.contigs`` and ``gene_calling.bp``.
     """
 
     def __init__(self, input_file: Path, prodigal_output: Path) -> None:
@@ -902,14 +907,16 @@ class Prodigal:
         tasks = [(i, acc, seq) for i, (acc, seq) in enumerate(contigs, 1)]
         n_workers = min(threads or os.cpu_count() or 1, max(len(tasks), 1))
         use_pool = n_workers > 1
-        if use_pool:
-            with ThreadPool(n_workers) as pool:
-                finder = GeneFinder([seq for _, seq in contigs], pool=pool)
-        else:
-            finder = GeneFinder([seq for _, seq in contigs])
+        trace.count_many({"gene_calling.contigs": len(contigs), "gene_calling.bp": sum(len(seq) for _, seq in contigs)})
+        with trace.span("gene_calling.train"):
+            if use_pool:
+                with ThreadPool(n_workers) as pool:
+                    finder = GeneFinder([seq for _, seq in contigs], pool=pool)
+            else:
+                finder = GeneFinder([seq for _, seq in contigs])
         _WORKER_FINDER = finder
         try:
-            with open(self.prodigal_output, "w") as fout:
+            with trace.span("gene_calling.call"), open(self.prodigal_output, "w") as fout:
                 if use_pool:
                     with ThreadPool(n_workers) as pool:
                         for block in pool.imap(_call_contig, tasks, chunksize=4):

@@ -52,16 +52,29 @@ thread (:func:`_prestage`) that stages every bucket class of the DB while
 the host prefilters the first query groups, as the JAX engine does; the
 main path waits on whichever bucket it needs first.
 
-``STATS`` accumulates over calls (callers reset it; updates hold a lock,
-since several threads write it): host-clock seconds per stage
+``STATS`` is the port's counter registry (``genomad_torch.trace.COUNTERS``);
+it accumulates over calls (callers reset it; updates hold a lock, since
+several threads write it). The search counts host-clock seconds per stage
 (``prefilter_s``; ``staging_s``, the buckets the main thread stages
 itself; ``staging_wait_s``, the main thread's wait for the build lock
 while another thread builds; ``prestage_s``, the prestage thread's builds;
-``sw_forward_s``, ``sw_reverse_s``, ``finalize_s``) and the pairs and DP
-cells (at real lengths) of each K1 pass (``pairs_forward``,
-``cells_forward``, ``pairs_reverse``, ``cells_reverse``). The prefilter
-and the prestage run in threads beside the device work, so the stages
-overlap and their sum may exceed the wall.
+``sw_forward_s``, ``sw_reverse_s``: K1's launches and the copy of their
+results; ``finalize_s``), the pairs and DP cells (at real lengths) of each
+K1 pass (``pairs_forward``, ``cells_forward``, ``pairs_reverse``,
+``cells_reverse``), the query groups (``search.groups``) and the native
+prefilter's own counts (``prefilter.*``). The prefilter and the prestage
+run in threads beside the device work, so the stages overlap and their sum
+may exceed the wall.
+
+Spans, while a ``torch.profiler`` session records (``genomad_torch.trace``):
+``search`` (one per call), ``search.prefilter`` (a group's prefilter, on the
+prefilter thread), ``search.prefilter_wait`` (the search thread waiting for
+it), ``search.align`` (one K1 pass over a group's pairs, attribute ``pass``:
+its bucket grouping, query staging, bucket fetch, launches and copy back),
+within it ``search.align.launch`` (the launches and the copy, the
+``sw_forward_s`` / ``sw_reverse_s`` time) and ``search.align.sync`` (the
+copy back, which waits for the card), ``search.finalize``, and
+``search.staging`` / ``search.prestage`` (bucket builds).
 """
 
 from __future__ import annotations
@@ -70,11 +83,11 @@ import os
 import threading
 import time
 import warnings
-from collections import defaultdict
 
 import numpy as np
 import torch
 
+from genomad_torch import trace
 from genomad_torch.device import resolve_device
 from genomad_torch.ops import profiledb
 from genomad_torch.ops.profiledb import KMER_K, N_AA, ProfileDB, encode_kmers
@@ -85,28 +98,10 @@ KA_LAMBDA = 0.267
 KA_K = 0.041
 LN2 = float(np.log(2.0))
 
-STATS: defaultdict = defaultdict(float)
-_STATS_LOCK = threading.Lock()
-
-
-def _count(key: str, value: float) -> None:
-    """STATS[key] += value; the prefilter worker, the prestage thread and
-    the main thread all count."""
-    with _STATS_LOCK:
-        STATS[key] += value
-
-
-class _timed:
-    """Adds the block's host-clock seconds to STATS[name + "_s"]."""
-
-    def __init__(self, name: str):
-        self.key = name + "_s"
-
-    def __enter__(self):
-        self.start = time.perf_counter()
-
-    def __exit__(self, *exc):
-        _count(self.key, time.perf_counter() - self.start)
+STATS = trace.COUNTERS
+# STATS[key] += value; the prefilter worker, the prestage thread and the
+# main thread all count
+_count = trace.count
 
 
 # ---------------------------------------------------------------------------
@@ -481,7 +476,7 @@ def _get_staged_profiles(db, pb_i, device, shard=(0, 1), stage="staging"):
             _count("staging_wait_s", time.perf_counter() - t0)
         bucket = cache.get(key)
         if bucket is None:
-            with _timed(stage):
+            with trace.timed(f"search.{stage}", f"{stage}_s"):
                 bucket = cache[key] = _build_staged_bucket(db, int(pb_i), device, shard)
     return bucket
 
@@ -523,30 +518,32 @@ class _PairAligner:
         self.queries: dict = {}
 
     def _run(self, pairs_q, pairs_p, stage, shape, launch):
-        operands = []
-        for qb_i, pb_i, sel in _bucket_groups(pairs_q, pairs_p, self.db, self.q_lengths):
-            if qb_i not in self.queries:
-                self.queries[qb_i] = _stage_queries(self.residues_list, self.q_lengths, qb_i, self.device)
-            bucket = _get_staged_profiles(self.db, pb_i, self.device, self.shard)
-            if self.device.type == "cuda":
-                # the bucket was allocated on its build's stream and is read
-                # on this one: its memory is not reused before these reads end
-                for t in bucket[1:]:
-                    t.record_stream(torch.cuda.current_stream(self.device))
-            operands.append((sel, self.queries[qb_i], bucket))
-        out = np.empty(shape, np.float32)
-        with _timed(stage):
-            parts = []
-            for sel, (q_ids, all_q, q_len), (p_ids, all_p, plen_f, plen_i) in operands:
-                idx = np.stack([np.searchsorted(q_ids, pairs_q[sel]), np.searchsorted(p_ids, pairs_p[sel])])
-                idx_t = torch.from_numpy(idx.astype(np.int32)).to(self.device)
-                parts.append(launch(sel, all_q, all_p, idx_t, (q_len, plen_i), plen_f[idx_t[1].long()]))
-            if parts:
-                stacked = torch.cat(parts).cpu().numpy()
-                base = 0
-                for sel, _, _ in operands:
-                    out[sel] = stacked[base : base + len(sel)]
-                    base += len(sel)
+        with trace.span("search.align", **{"pass": stage.removeprefix("sw_")}):
+            operands = []
+            for qb_i, pb_i, sel in _bucket_groups(pairs_q, pairs_p, self.db, self.q_lengths):
+                if qb_i not in self.queries:
+                    self.queries[qb_i] = _stage_queries(self.residues_list, self.q_lengths, qb_i, self.device)
+                bucket = _get_staged_profiles(self.db, pb_i, self.device, self.shard)
+                if self.device.type == "cuda":
+                    # the bucket was allocated on its build's stream and is read
+                    # on this one: its memory is not reused before these reads end
+                    for t in bucket[1:]:
+                        t.record_stream(torch.cuda.current_stream(self.device))
+                operands.append((sel, self.queries[qb_i], bucket))
+            out = np.empty(shape, np.float32)
+            with trace.timed("search.align.launch", stage + "_s"):
+                parts = []
+                for sel, (q_ids, all_q, q_len), (p_ids, all_p, plen_f, plen_i) in operands:
+                    idx = np.stack([np.searchsorted(q_ids, pairs_q[sel]), np.searchsorted(p_ids, pairs_p[sel])])
+                    idx_t = torch.from_numpy(idx.astype(np.int32)).to(self.device)
+                    parts.append(launch(sel, all_q, all_p, idx_t, (q_len, plen_i), plen_f[idx_t[1].long()]))
+                if parts:
+                    with trace.span("search.align.sync"):
+                        stacked = torch.cat(parts).cpu().numpy()
+                    base = 0
+                    for sel, _, _ in operands:
+                        out[sel] = stacked[base : base + len(sel)]
+                        base += len(sel)
         return out
 
     def forward(self, pairs_q, pairs_p):
@@ -733,118 +730,121 @@ def search(
     prefilter (see the module docstring); it stops after the bucket in
     flight when the search returns or raises (:func:`join_prestage`).
     """
-    sharded = mesh is not None and mesh.size > 1
-    if mesh is not None and not sharded:
-        device = mesh.devices[0, 0]
-    device = None if sharded else resolve_device(device)
-    residues_list = [profiledb.encode_protein(s) for s in query_seqs]
-    # Karlin-Altschul parameters: the DB's calibrated fit when present
-    # (ops.statistics.calibrate_db), else the generic BLOSUM62 constants.
-    lam = db.ka_lambda if getattr(db, "ka_lambda", None) else KA_LAMBDA
-    kk = db.ka_k if getattr(db, "ka_k", None) else KA_K
-    # db_positions: the profile-DB residue count entering only the REPORTED
-    # (swapped-back) E-value; the align-stage gate uses the protein query
-    # set's residue count (n_gate below).
-    if db_positions is None:
-        db_positions = max(db.total_positions, 1)
+    with trace.span("search", db_profiles=int(db.n_profiles)):
+        sharded = mesh is not None and mesh.size > 1
+        if mesh is not None and not sharded:
+            device = mesh.devices[0, 0]
+        device = None if sharded else resolve_device(device)
+        residues_list = [profiledb.encode_protein(s) for s in query_seqs]
+        # Karlin-Altschul parameters: the DB's calibrated fit when present
+        # (ops.statistics.calibrate_db), else the generic BLOSUM62 constants.
+        lam = db.ka_lambda if getattr(db, "ka_lambda", None) else KA_LAMBDA
+        kk = db.ka_k if getattr(db, "ka_k", None) else KA_K
+        # db_positions: the profile-DB residue count entering only the REPORTED
+        # (swapped-back) E-value; the align-stage gate uses the protein query
+        # set's residue count (n_gate below).
+        if db_positions is None:
+            db_positions = max(db.total_positions, 1)
 
-    nq = len(residues_list)
-    q_lengths = np.array([len(r) for r in residues_list], np.int64)
-    n_gate = max(int(q_lengths.sum()), 1)
-    # a query selects at most n_profiles candidates, so the output buffer
-    # bound never exceeds it (the reference's 10M default is never hit)
-    out_bound = min(int(max_seqs), db.n_profiles)
-    # Small DBs skip the prefilter: every pair is aligned, and with no
-    # prefilter-score order --max-rejected is disabled (a SUPERSET of the
-    # reference's behaviour, documented in PARITY.md).
-    all_pairs = skip_prefilter or db.n_profiles <= 256
-    if all_pairs:
-        max_rejected = 0
-        kmer_thr = None
-        index = None
-        bias_list = None
-    else:
-        from genomad_torch.ops import blosum
-
-        kmer_thr = blosum.kmer_score_threshold(sensitivity)
-        index = db.kmer_index(1)  # consensus k-mers; sensitivity is query-side
-        bias_list = [blosum.comp_bias(r) for r in residues_list] if comp_bias_corr else None
-
-    drop_total = [0]
-
-    def prefilter_group(q_idx):
-        """Per-query (candidate ids, ungapped scores) for one group of
-        query indices (host CPU)."""
+        nq = len(residues_list)
+        q_lengths = np.array([len(r) for r in residues_list], np.int64)
+        n_gate = max(int(q_lengths.sum()), 1)
+        # a query selects at most n_profiles candidates, so the output buffer
+        # bound never exceeds it (the reference's 10M default is never hit)
+        out_bound = min(int(max_seqs), db.n_profiles)
+        # Small DBs skip the prefilter: every pair is aligned, and with no
+        # prefilter-score order --max-rejected is disabled (a SUPERSET of the
+        # reference's behaviour, documented in PARITY.md).
+        all_pairs = skip_prefilter or db.n_profiles <= 256
         if all_pairs:
-            ids = np.arange(db.n_profiles, dtype=np.int64)
-            return [(ids, np.zeros(db.n_profiles, np.float32))] * len(q_idx)
-        from genomad_torch import native
+            max_rejected = 0
+            kmer_thr = None
+            index = None
+            bias_list = None
+        else:
+            from genomad_torch.ops import blosum
 
-        with _timed("prefilter"):
-            res_sub = [residues_list[i] for i in q_idx]
-            bias_sub = [bias_list[i] for i in q_idx] if bias_list is not None else None
-            result = native.native_prefilter_batch(
-                index, res_sub, db, min_ungapped_score,
-                kmer_thr=kmer_thr, max_out_per_query=out_bound,
-                n_threads=n_threads, bias_list=bias_sub,
+            kmer_thr = blosum.kmer_score_threshold(sensitivity)
+            index = db.kmer_index(1)  # consensus k-mers; sensitivity is query-side
+            bias_list = [blosum.comp_bias(r) for r in residues_list] if comp_bias_corr else None
+
+        drop_total = [0]
+
+        def prefilter_group(q_idx):
+            """Per-query (candidate ids, ungapped scores) for one group of
+            query indices (host CPU)."""
+            if all_pairs:
+                ids = np.arange(db.n_profiles, dtype=np.int64)
+                return [(ids, np.zeros(db.n_profiles, np.float32))] * len(q_idx)
+            from genomad_torch import native
+
+            with trace.timed("search.prefilter", "prefilter_s"):
+                res_sub = [residues_list[i] for i in q_idx]
+                bias_sub = [bias_list[i] for i in q_idx] if bias_list is not None else None
+                result = native.native_prefilter_batch(
+                    index, res_sub, db, min_ungapped_score,
+                    kmer_thr=kmer_thr, max_out_per_query=out_bound,
+                    n_threads=n_threads, bias_list=bias_sub,
+                )
+                if result is None:  # no C++ toolchain: numpy fallback
+                    cache: dict = {}
+                    drop_list: list = []
+                    out_list = []
+                    for i in q_idx:
+                        ids, scores = prefilter_query(
+                            residues_list[i], db, index, min_ungapped_score,
+                            max_candidates=out_bound, kmer_thr=kmer_thr,
+                            expansion_cache=cache, drops=drop_list,
+                            bias=None if bias_list is None else bias_list[i],
+                        )
+                        out_list.append((ids.astype(np.int64), scores.astype(np.float32)))
+                    drop_total[0] += sum(drop_list)
+                    return out_list
+                ids_list, scores_list, n_dropped = result
+                drop_total[0] += n_dropped
+                return [
+                    (ids.astype(np.int64), scores.astype(np.float32))
+                    for ids, scores in zip(ids_list, scores_list)
+                ]
+
+        ka = ka_params(float(lam), float(kk), n_gate)
+        if sharded:
+            aligner = _MeshAligner(db, residues_list, q_lengths, mesh, ka)
+        else:
+            aligner = _PairAligner(db, residues_list, q_lengths, device, torch.from_numpy(ka).to(device))
+        fwd_fn, cov_fn = aligner.forward, aligner.coverage
+
+        group_size = max(64, int(batch_size))
+        groups = [
+            np.arange(s, min(s + group_size, nq), dtype=np.int64)
+            for s in range(0, nq, group_size)
+        ]
+        if profile_major is None:
+            profile_major = not all_pairs and nq >= int(
+                os.environ.get("GENOMAD_PROFILE_MAJOR_MIN", "8192")
             )
-            if result is None:  # no C++ toolchain: numpy fallback
-                cache: dict = {}
-                drop_list: list = []
-                out_list = []
-                for i in q_idx:
-                    ids, scores = prefilter_query(
-                        residues_list[i], db, index, min_ungapped_score,
-                        max_candidates=out_bound, kmer_thr=kmer_thr,
-                        expansion_cache=cache, drops=drop_list,
-                        bias=None if bias_list is None else bias_list[i],
-                    )
-                    out_list.append((ids.astype(np.int64), scores.astype(np.float32)))
-                drop_total[0] += sum(drop_list)
-                return out_list
-            ids_list, scores_list, n_dropped = result
-            drop_total[0] += n_dropped
-            return [
-                (ids.astype(np.int64), scores.astype(np.float32))
-                for ids, scores in zip(ids_list, scores_list)
-            ]
-
-    ka = ka_params(float(lam), float(kk), n_gate)
-    if sharded:
-        aligner = _MeshAligner(db, residues_list, q_lengths, mesh, ka)
-    else:
-        aligner = _PairAligner(db, residues_list, q_lengths, device, torch.from_numpy(ka).to(device))
-    fwd_fn, cov_fn = aligner.forward, aligner.coverage
-
-    group_size = max(64, int(batch_size))
-    groups = [
-        np.arange(s, min(s + group_size, nq), dtype=np.int64)
-        for s in range(0, nq, group_size)
-    ]
-    if profile_major is None:
-        profile_major = not all_pairs and nq >= int(
-            os.environ.get("GENOMAD_PROFILE_MAJOR_MIN", "8192")
+        common = dict(
+            db=db, q_lengths=q_lengths, evalue_threshold=evalue_threshold,
+            min_cov=min_cov, max_rejected=max_rejected,
+            db_positions=db_positions, lam=lam, kk=kk,
+            query_names=query_names, drop_total=drop_total,
+            out_bound=out_bound, _details=_details,
         )
-    common = dict(
-        db=db, q_lengths=q_lengths, evalue_threshold=evalue_threshold,
-        min_cov=min_cov, max_rejected=max_rejected,
-        db_positions=db_positions, lam=lam, kk=kk,
-        query_names=query_names, drop_total=drop_total,
-        out_bound=out_bound, _details=_details,
-    )
-    stop = threading.Event()
-    if not all_pairs and db.n_profiles > _PRESTAGE_MIN_PROFILES and _single_process():
-        cells = aligner.cells.values() if sharded else (aligner,)
-        targets = list({(str(c.device), c.shard): (c.device, c.shard) for c in cells}.values())
-        # non-daemon: process exit waits for the bucket in flight
-        threading.Thread(target=_prestage, args=(db, targets, stop), name=PRESTAGE_THREAD, daemon=False).start()
-    try:
-        if profile_major and not all_pairs:
-            return _run_profile_major(groups, prefilter_group, fwd_fn, cov_fn, **common)
-        return _run_streaming(groups, prefilter_group, fwd_fn, cov_fn, all_pairs=all_pairs, **common)
-    finally:
-        # also when the search raises: the prestage stops after its bucket in flight
-        stop.set()
+        stop = threading.Event()
+        if not all_pairs and db.n_profiles > _PRESTAGE_MIN_PROFILES and _single_process():
+            cells = aligner.cells.values() if sharded else (aligner,)
+            targets = list({(str(c.device), c.shard): (c.device, c.shard) for c in cells}.values())
+            # non-daemon: process exit waits for the bucket in flight
+            threading.Thread(target=trace.carry(_prestage), args=(db, targets, stop), name=PRESTAGE_THREAD, daemon=False).start()
+        if not all_pairs:
+            trace.count("search.groups", len(groups))
+        try:
+            if profile_major and not all_pairs:
+                return _run_profile_major(groups, prefilter_group, fwd_fn, cov_fn, **common)
+            return _run_streaming(groups, prefilter_group, fwd_fn, cov_fn, all_pairs=all_pairs, **common)
+        finally:
+            # also when the search raises: the prestage stops after its bucket in flight
+            stop.set()
 
 
 def _run_streaming(
@@ -905,18 +905,19 @@ def _run_streaming(
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(max_workers=1) as ex:
-            fut = ex.submit(prefilter_group, groups[0])
+            fut = ex.submit(trace.carry(prefilter_group), groups[0])
             for gi, g in enumerate(groups):
-                cand_group = fut.result()
+                with trace.span("search.prefilter_wait"):
+                    cand_group = fut.result()
                 if gi + 1 < len(groups):
-                    fut = ex.submit(prefilter_group, groups[gi + 1])
+                    fut = ex.submit(trace.carry(prefilter_group), groups[gi + 1])
                 run_stage2(g, cand_group)
     _warn_drops(drop_total, out_bound)
 
     # ---- finalize: stop rule -> coverage pass -> best hit ----
     if not rec_q:
         return {}
-    with _timed("finalize"):
+    with trace.timed("search.finalize", "finalize_s"):
         genes = np.concatenate(rec_q)
         profs = np.concatenate(rec_p)
         pf = np.concatenate(rec_pf)
@@ -942,7 +943,7 @@ def _run_streaming(
     acc = need_cov & (pcov >= np.float32(min_cov))
     if not np.any(acc):
         return {}
-    with _timed("finalize"):
+    with trace.timed("search.finalize", "finalize_s"):
         return _select_best_hits(
             genes[acc], profs[acc], raw[acc], db, q_lengths, db_positions,
             lam, kk, query_names, _details,

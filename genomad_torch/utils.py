@@ -30,6 +30,8 @@ from typing import Iterator
 
 import numpy as np
 
+from genomad_torch import trace
+
 
 class Compression(Enum):
     bzip2 = auto()
@@ -102,10 +104,14 @@ def check_executables(executables: list[str]) -> list[str]:
 
 
 def get_md5(filepath, size=io.DEFAULT_BUFFER_SIZE) -> str:
+    """The file's md5 (span ``md5``; counter ``md5.bytes``)."""
     m = hashlib.md5()
-    with open(filepath, "rb") as fin:
+    n = 0
+    with trace.span("md5"), open(filepath, "rb") as fin:
         while chunk := fin.read(size):
             m.update(chunk)
+            n += len(chunk)
+    trace.count("md5.bytes", n)
     return m.hexdigest()
 
 
@@ -178,13 +184,16 @@ class Console:
         self._write_file(str(message))
 
     @contextmanager
-    def timer(self, stage: str):
-        """Per-stage wall-clock timing, logged when the stage ends."""
+    def timer(self, stage: str, span: str | None = None):
+        """Per-stage wall-clock timing, logged when the stage ends; the
+        stage is also a span (``genomad_torch.trace``) named ``span``, or
+        the stage's name."""
         import time
 
-        start = time.perf_counter()
-        yield
-        self.log(f"[{stage}] completed in {time.perf_counter() - start:.2f}s")
+        with trace.span(span or stage):
+            start = time.perf_counter()
+            yield
+            self.log(f"[{stage}] completed in {time.perf_counter() - start:.2f}s")
 
 
 def display_header(console, module_name, module_description, output_dir, output_files, output_descriptions):
