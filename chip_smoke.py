@@ -76,8 +76,9 @@ only the full run, with no arguments, does.
 11. search  - the marker search on an in-memory 227,897-profile integral DB
               (the real geNomad DB's profile count) with 500 mixed queries:
               cold and steady seconds, k residues/s, pairs, K1 cells/s and
-              the staged DB's device memory; and a 2,000-profile search on
-              the card against the port's own CPU run.
+              the staged DB's device memory; a 2,000-profile search on
+              the card against the port's own CPU run; the stop rule on
+              the card against the CPU over 8.4 M pairs (ms of each).
 12. train   - the trainer (genomad_torch.train) at full width in f32 (TF32
               off): 20 steps of make_train_step at B = 64 windows of 5,997
               tokens, dropout 0.2, on a separable toy task (the loss must
@@ -1580,7 +1581,45 @@ def real_db_phase() -> dict:
     if on_card != on_cpu or not on_card:
         raise AssertionError(f"2,000-profile search: card {len(on_card)} hits != CPU {len(on_cpu)} hits")
     log(f"# search 2,000 profiles x 60 queries: card == CPU ({len(on_card)} hits)")
+    summary["stop_rule"] = stop_rule_card_vs_cpu()
     return summary
+
+
+def stop_rule_card_vs_cpu(n: int = 8_400_000, n_profiles: int = 227_897) -> dict:
+    """``protein_search._stop_rule`` on the card against the same function
+    on the CPU over a table of an e2e job's size: scores
+    from a handful of values (-0.0 and +0.0 among them) so most pairs tie,
+    carries in, a quarter of the profiles keeping nothing and a quarter
+    everything. Raises unless aligned, carry and stopped are equal; returns
+    each side's ms (the card's a CUDA-event mean of 5 after a warm-up)."""
+    from genomad_torch.ops import protein_search as ps
+
+    rng = np.random.default_rng(18)
+    profs = rng.integers(0, n_profiles, n).astype(np.int32)
+    pf = rng.choice(np.array([-0.0, 0.0, 25.0, 26.5, 31.0, 40.0], np.float32), n)
+    keep = rng.random(n) < np.array([0.0, 0.05, 0.5, 1.0], np.float32)[profs % 4]
+    out = {"pairs": n, "profiles": n_profiles}
+    for R in (1, 280):
+        carry = rng.integers(0, R, n_profiles)
+        host = [torch.from_numpy(a) for a in (profs, pf, keep, carry)]
+        t = time.perf_counter()
+        on_cpu = ps._stop_rule(*host, R)
+        out[f"cpu_ms_r{R}"] = (time.perf_counter() - t) * 1e3
+        dev = [a.cuda() for a in host]
+        ps._stop_rule(*dev, R)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            on_card = ps._stop_rule(*dev, R)
+        end.record()
+        torch.cuda.synchronize()
+        out[f"card_ms_r{R}"] = start.elapsed_time(end) / 5
+        for name, a, b in zip(("aligned", "carry", "stopped"), on_card, on_cpu):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"stop rule, max_rejected {R}: {name} on the card != on the CPU")
+        out[f"stopped_r{R}"] = int(on_cpu[2].sum())
+    log("# stop rule, card == CPU: " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------

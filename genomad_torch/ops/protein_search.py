@@ -31,7 +31,8 @@ the reference's 8-command MMseqs2 subprocess chain (genomad/mmseqs2.py:
      - ``--max-rejected 280`` (pass 1): each PROFILE walks its candidate
        genes in swapped prefilter order (ungapped score desc, gene index
        asc) and stops at the 280th consecutive E-value rejection, applied
-       post-hoc to the batched results (bit-equal to the sequential walk);
+       post-hoc to the batched results where they lie, on the card in the
+       streaming mode (bit-equal to the sequential walk);
      - best hit per gene: int bitscore desc, profile length asc, profile id
        asc; the reported E-value is gene_len * db_positions * 2^-int_bits.
 
@@ -58,23 +59,28 @@ several threads write it). The search counts host-clock seconds per stage
 (``prefilter_s``; ``staging_s``, the buckets the main thread stages
 itself; ``staging_wait_s``, the main thread's wait for the build lock
 while another thread builds; ``prestage_s``, the prestage thread's builds;
-``sw_forward_s``, ``sw_reverse_s``: K1's launches and the copy of their
-results; ``finalize_s``), the pairs and DP cells (at real lengths) of each
-K1 pass (``pairs_forward``, ``cells_forward``, ``pairs_reverse``,
-``cells_reverse``), the query groups (``search.groups``) and the native
-prefilter's own counts (``prefilter.*``). The prefilter and the prestage
-run in threads beside the device work, so the stages overlap and their sum
-may exceed the wall.
+``sw_forward_s``, ``sw_reverse_s``: K1's launches, and for the reverse
+pass the copy of its results; ``finalize_s``), the pairs and DP cells (at
+real lengths) of each K1 pass (``pairs_forward``, ``cells_forward``,
+``pairs_reverse``, ``cells_reverse``), the pairs whose E-value gate and
+stop rule ran on a CUDA device or on the CPU (``finalize.pairs_on_card``,
+``finalize.pairs_on_host``), the query groups (``search.groups``) and the
+native prefilter's own counts (``prefilter.*``). The prefilter and the
+prestage run in threads beside the device work, so the stages overlap and
+their sum may exceed the wall.
 
 Spans, while a ``torch.profiler`` session records (``genomad_torch.trace``):
 ``search`` (one per call), ``search.prefilter`` (a group's prefilter, on the
 prefilter thread), ``search.prefilter_wait`` (the search thread waiting for
 it), ``search.align`` (one K1 pass over a group's pairs, attribute ``pass``:
-its bucket grouping, query staging, bucket fetch, launches and copy back),
-within it ``search.align.launch`` (the launches and the copy, the
-``sw_forward_s`` / ``sw_reverse_s`` time) and ``search.align.sync`` (the
-copy back, which waits for the card), ``search.finalize``, and
-``search.staging`` / ``search.prestage`` (bucket builds).
+its bucket grouping, query staging, bucket fetch and launches), within it
+``search.align.launch`` (the launches, the ``sw_forward_s`` /
+``sw_reverse_s`` time) and, in the reverse pass, ``search.align.sync`` (the
+copy back, which waits for the card; the forward pass leaves its stats on
+the device), ``search.finalize`` with, in its first span,
+``search.finalize.sync`` (the stop rule's survivors copied back, which
+waits for the last K1), and ``search.staging`` / ``search.prestage``
+(bucket builds).
 """
 
 from __future__ import annotations
@@ -481,6 +487,13 @@ def _get_staged_profiles(db, pb_i, device, shard=(0, 1), stage="staging"):
     return bucket
 
 
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` on ``device`` without waiting for the card: a copy from
+    pageable host memory is staged before the call returns, so it neither
+    waits for the work queued before it nor outlives ``a``."""
+    return torch.from_numpy(a).to(device, non_blocking=True)
+
+
 def _stage_queries(residues_list, q_lengths, qb_i, device):
     """One query bucket on the device: the sorted indices of the queries in
     length class ``qb_i``, their (n, Lq) int32 rows padded with code 20 and
@@ -490,8 +503,7 @@ def _stage_queries(residues_list, q_lengths, qb_i, device):
     arr = np.full((len(ids), _BOUNDS[qb_i]), 20, np.int32)
     for row, i in enumerate(ids):
         arr[row, : len(residues_list[i])] = residues_list[i]
-    lens = torch.from_numpy(q_lengths[ids].astype(np.int32)).to(device)
-    return ids, torch.from_numpy(arr).to(device), lens
+    return ids, _upload(arr, device), _upload(q_lengths[ids].astype(np.int32), device)
 
 
 def _bucket_groups(pairs_q, pairs_p, db, q_lengths):
@@ -508,7 +520,8 @@ class _PairAligner:
     """K1 over the candidate pairs of one search: one launch per (query
     bucket, profile bucket), operands read by index from the staged
     buckets (query buckets staged on first use, profile buckets cached on
-    the DB), results copied back to the host once per call. ``shard``
+    the DB). The forward stats stay on the device; the reverse pass, over
+    the few E-value survivors, copies its coverage back. ``shard``
     (d, n_db): the pairs' profiles all lie in that db shard of their
     buckets, which is all that is staged."""
 
@@ -517,7 +530,10 @@ class _PairAligner:
         self.device, self.ka, self.shard = device, ka, shard
         self.queries: dict = {}
 
-    def _run(self, pairs_q, pairs_p, stage, shape, launch):
+    def _run(self, pairs_q, pairs_p, stage, shape, launch, host=False):
+        """K1 over the pairs' bucket groups; the rows of every group land
+        in one output on the device, in the input pair order, which
+        ``host`` copies back."""
         with trace.span("search.align", **{"pass": stage.removeprefix("sw_")}):
             operands = []
             for qb_i, pb_i, sel in _bucket_groups(pairs_q, pairs_p, self.db, self.q_lengths):
@@ -530,25 +546,22 @@ class _PairAligner:
                     for t in bucket[1:]:
                         t.record_stream(torch.cuda.current_stream(self.device))
                 operands.append((sel, self.queries[qb_i], bucket))
-            out = np.empty(shape, np.float32)
+            out = torch.empty(shape, dtype=torch.float32, device=self.device)
             with trace.timed("search.align.launch", stage + "_s"):
-                parts = []
                 for sel, (q_ids, all_q, q_len), (p_ids, all_p, plen_f, plen_i) in operands:
                     idx = np.stack([np.searchsorted(q_ids, pairs_q[sel]), np.searchsorted(p_ids, pairs_p[sel])])
-                    idx_t = torch.from_numpy(idx.astype(np.int32)).to(self.device)
-                    parts.append(launch(sel, all_q, all_p, idx_t, (q_len, plen_i), plen_f[idx_t[1].long()]))
-                if parts:
+                    idx_t = _upload(idx.astype(np.int32), self.device)
+                    part = launch(sel, all_q, all_p, idx_t, (q_len, plen_i), plen_f[idx_t[1].long()])
+                    out.index_copy_(0, _upload(sel, self.device), part)
+                if host:
                     with trace.span("search.align.sync"):
-                        stacked = torch.cat(parts).cpu().numpy()
-                    base = 0
-                    for sel, _, _ in operands:
-                        out[sel] = stacked[base : base + len(sel)]
-                        base += len(sel)
+                        return out.cpu().numpy()
         return out
 
-    def forward(self, pairs_q, pairs_p):
-        """(N, 4) f32 forward-pass stats (score, end_i, end_j, evalue32),
-        the E-value gate computed beside K1 on the device."""
+    def forward(self, pairs_q, pairs_p) -> torch.Tensor:
+        """(N, 4) f32 forward-pass stats (score, end_i, end_j, evalue32) on
+        the aligner's device, the E-value gate computed beside K1. Nothing
+        waits for the card: the stats stay there for the stop rule."""
         _count("pairs_forward", len(pairs_q))
         _count("cells_forward", float(np.dot(self.q_lengths[pairs_q].astype(np.float64), self.db.lengths[pairs_p])))
 
@@ -558,21 +571,22 @@ class _PairAligner:
 
         return self._run(pairs_q, pairs_p, "sw_forward", (len(pairs_q), 4), launch)
 
-    def coverage(self, pairs_q, pairs_p, ends):
+    def coverage(self, pairs_q, pairs_p, ends) -> np.ndarray:
         """(M,) f32 PROFILE coverage of E-value survivors from the reverse
-        pass: (end_j - start_j + 1) / plen = (rev_j + 1) / plen, the
-        reference's ``--cov-mode 2`` statistic (mmseqs2.py:123-140).
+        pass, on the host: (end_j - start_j + 1) / plen = (rev_j + 1) /
+        plen, the reference's ``--cov-mode 2`` statistic
+        (mmseqs2.py:123-140).
 
         ends: (M, 2) f32 forward (end_i, end_j) per pair."""
         _count("pairs_reverse", len(pairs_q))
         _count("cells_reverse", float(np.dot(ends[:, 0].astype(np.float64) + 1, ends[:, 1].astype(np.float64) + 1)))
 
         def launch(sel, all_q, all_p, idx, lengths, plen):
-            ends_t = torch.from_numpy(np.ascontiguousarray(ends[sel].T.astype(np.int32))).to(self.device)
+            ends_t = _upload(np.ascontiguousarray(ends[sel].T.astype(np.int32)), self.device)
             _, _, rev_j = sw_pairs(all_q, all_p, idx, ends=ends_t, lengths=lengths)
             return (rev_j.float() + 1.0) / plen
 
-        return self._run(pairs_q, pairs_p, "sw_reverse", (len(pairs_q),), launch)
+        return self._run(pairs_q, pairs_p, "sw_reverse", (len(pairs_q),), launch, host=True)
 
 
 class _MeshAligner:
@@ -582,7 +596,8 @@ class _MeshAligner:
     pair goes to the db shard of its profile, and the pairs of one shard go
     round-robin over the ``data`` cells. Each of this rank's cells runs a
     ``_PairAligner`` on its device with its shard staged there; the stats
-    come back in input order (``Mesh.gather`` joins the ranks' rows)."""
+    come back to the host in input order (``Mesh.gather`` joins the ranks'
+    rows), so the stop rule runs on the host."""
 
     def __init__(self, db, residues_list, q_lengths, mesh, ka: np.ndarray):
         self.mesh = mesh
@@ -611,13 +626,14 @@ class _MeshAligner:
                 if (g, d) not in self.cells or not len(rows):
                     continue
                 before = sw_pairs.launches
-                out[rows] = getattr(self.cells[g, d], method)(pairs_q[rows], pairs_p[rows], *(e[rows] for e in extra))
+                got = getattr(self.cells[g, d], method)(pairs_q[rows], pairs_p[rows], *(e[rows] for e in extra))
+                out[rows] = torch.as_tensor(got).cpu().numpy()
                 launches = self.mesh.cell_launches
                 launches[g, d] = launches.get((g, d), 0) + sw_pairs.launches - before
         return self.mesh.gather(out)
 
-    def forward(self, pairs_q, pairs_p):
-        return self._run("forward", (len(pairs_q), 4), pairs_q, pairs_p)
+    def forward(self, pairs_q, pairs_p) -> torch.Tensor:
+        return torch.from_numpy(self._run("forward", (len(pairs_q), 4), pairs_q, pairs_p))
 
     def coverage(self, pairs_q, pairs_p, ends):
         return self._run("coverage", (len(pairs_q),), pairs_q, pairs_p, ends)
@@ -871,12 +887,10 @@ def _run_streaming(
     each query group as its prefilter result arrives, then the stop rule
     applied post-hoc, the coverage pass on the survivors and the best hit."""
     # ---- forward SW over every candidate pair, accumulating lean
-    # per-pair records; the stop rule, the reverse/coverage pass on
-    # survivors and best-hit selection run once at the end ----
-    rec_q: list = []  # gene index per pair
-    rec_p: list = []  # profile id per pair
-    rec_pf: list = []  # prefilter ungapped score per pair
-    rec_stats: list = []  # (N, 4) score/end_i/end_j/ev32
+    # per-pair records where the aligner leaves its stats (on the card for
+    # a _PairAligner there); the stop rule runs there once at the end, the
+    # coverage pass and best-hit selection on the host over its survivors ----
+    records: list = []  # per group: genes (int32), profiles (int32), prefilter scores (f32), (N, 4) stats
 
     def run_stage2(q_idx, cand_group):
         sq, sp, spf = [], [], []
@@ -884,20 +898,21 @@ def _run_streaming(
             ids, scores = cand_group[li]
             if not len(ids):
                 continue
-            sq.append(np.full(len(ids), qi, np.int64))
+            sq.append(np.full(len(ids), qi, np.int32))
             sp.append(ids)
             spf.append(scores)
         if not sq:
             return
         pairs_q = np.concatenate(sq)
         pairs_p = np.concatenate(sp)
-        rec_stats.append(fwd_fn(pairs_q, pairs_p))
-        rec_q.append(pairs_q.astype(np.int32))
-        rec_p.append(pairs_p.astype(np.int32))
-        rec_pf.append(np.concatenate(spf))
+        stats = fwd_fn(pairs_q, pairs_p)
+        # the genes ascend within a group and across groups, which
+        # _walk_order's ties rest on
+        host = (pairs_q, pairs_p.astype(np.int32), np.concatenate(spf))
+        records.append((*(_upload(a, stats.device) for a in host), stats))
 
     # pipeline: the host prefilter of group k+1 (the C++ call releases the
-    # GIL) overlaps the device alignment of group k
+    # GIL) overlaps the host work of group k and, on the card, its K1
     if len(groups) <= 1 or all_pairs:
         for g in groups:
             run_stage2(g, prefilter_group(g))
@@ -915,32 +930,16 @@ def _run_streaming(
     _warn_drops(drop_total, out_bound)
 
     # ---- finalize: stop rule -> coverage pass -> best hit ----
-    if not rec_q:
+    if not records:
         return {}
     with trace.timed("search.finalize", "finalize_s"):
-        genes = np.concatenate(rec_q)
-        profs = np.concatenate(rec_p)
-        pf = np.concatenate(rec_pf)
-        stats = np.concatenate(rec_stats, axis=0)
-        raw = stats[:, 0]
-        keep1 = stats[:, 3] <= np.float32(evalue_threshold)
-        if max_rejected:
-            # per-PROFILE sequential walk in swapped prefilter order:
-            # ungapped score desc, gene index asc on ties (PARITY.md)
-            order = np.lexsort((genes, -pf, profs))
-            aligned_o, _, _ = _max_rejected_mask(
-                profs[order], keep1[order],
-                np.zeros(db.n_profiles, np.int64), int(max_rejected),
-            )
-            aligned = np.empty(len(genes), bool)
-            aligned[order] = aligned_o
-        else:
-            aligned = np.ones(len(genes), bool)
-        need_cov = aligned & keep1
-    pcov = np.zeros(len(genes), np.float32)
-    if np.any(need_cov):
-        pcov[need_cov] = cov_fn(genes[need_cov], profs[need_cov], stats[need_cov, 1:3])
-    acc = need_cov & (pcov >= np.float32(min_cov))
+        genes, profs, ends, raw = _survivors(
+            *(torch.cat(parts) for parts in zip(*records)),
+            evalue_threshold=evalue_threshold, max_rejected=max_rejected, n_profiles=db.n_profiles,
+        )
+    if not len(genes):
+        return {}
+    acc = cov_fn(genes, profs, ends) >= np.float32(min_cov)
     if not np.any(acc):
         return {}
     with trace.timed("search.finalize", "finalize_s"):
@@ -948,6 +947,23 @@ def _run_streaming(
             genes[acc], profs[acc], raw[acc], db, q_lengths, db_positions,
             lam, kk, query_names, _details,
         )
+
+
+def _survivors(genes, profs, pf, stats, *, evalue_threshold, max_rejected, n_profiles):
+    """The pairs of the forward records that pass the E-value gate and
+    that the stop rule aligns, computed where the records are: their
+    genes, profiles, (M, 2) f32 ends and (M,) f32 raw scores on the host,
+    in record order, in one copy (span ``search.finalize.sync``, which on
+    the card also waits for the last K1)."""
+    _count("finalize.pairs_on_card" if stats.is_cuda else "finalize.pairs_on_host", len(genes))
+    need_cov = stats[:, 3] <= float(np.float32(evalue_threshold))
+    if max_rejected:
+        carry = torch.zeros(n_profiles, dtype=torch.int64, device=stats.device)
+        need_cov &= _stop_rule(profs, pf, need_cov, carry, int(max_rejected))[0]
+    with trace.span("search.finalize.sync"):
+        idx = torch.nonzero(need_cov).squeeze(1)
+        rows = torch.cat([genes[idx, None], profs[idx, None], stats[idx, :3].view(torch.int32)], dim=1).cpu().numpy()
+    return rows[:, 0], rows[:, 1], rows[:, 3:5].view(np.float32), rows[:, 2].view(np.float32)
 
 
 def _warn_drops(drop_total, out_bound):
@@ -1016,8 +1032,9 @@ def _run_profile_major(
     descending, stopping each profile's walk at the max_rejected-th
     consecutive E-value rejection (genomad/mmseqs2.py:107-122). Rounds of
     up to _PM_ROUND pairs per live profile bound the alignment wasted past
-    stop points; the stop rule is the vectorized sequential-walk mask
-    (_max_rejected_mask) with rejection runs carried across rounds.
+    stop points; the stop rule is the vectorized sequential walk
+    (:func:`_stop_rule`, on the host) with rejection runs carried across
+    rounds.
     Bit-equal to the streaming mode."""
     cand_g, cand_p, cand_f = [], [], []
     for g in groups:
@@ -1036,14 +1053,15 @@ def _run_profile_major(
     pf = np.concatenate(cand_f)
     # the swapped per-profile walk order: profile asc, prefilter score
     # desc, gene index asc on ties
-    order = np.lexsort((genes, -pf, profs))
-    genes, profs = genes[order], profs[order]
+    order = _walk_order(torch.from_numpy(profs), torch.from_numpy(pf)).numpy()
+    genes, profs, pf = genes[order], profs[order], pf[order]
     seg_start = np.concatenate(
         [[0], np.where(profs[1:] != profs[:-1])[0] + 1]
     ).astype(np.int64)
     seg_end = np.concatenate([seg_start[1:], [len(profs)]]).astype(np.int64)
+    seg_prof = profs[seg_start]
     cur = seg_start.copy()
-    carry = np.zeros(db.n_profiles, np.int64)
+    carry = torch.zeros(db.n_profiles, dtype=torch.int64)
     alive = np.ones(len(seg_start), bool)
     acc: list = []
     R = _PM_ROUND
@@ -1053,12 +1071,14 @@ def _run_profile_major(
         offsets = np.concatenate([[0], np.cumsum(take)[:-1]])
         idx = np.repeat(cur[live] - offsets, take) + np.arange(int(take.sum()))
         rq, rp = genes[idx], profs[idx]
-        stats = stats_fn(rq, rp)
+        stats = stats_fn(rq, rp).cpu().numpy()
         keep1 = stats[:, 3] <= np.float32(evalue_threshold)
+        _count("finalize.pairs_on_host", len(rq))
         if max_rejected:
-            aligned, carry, stopped = _max_rejected_mask(
-                rp, keep1, carry, int(max_rejected)
+            aligned, carry, stopped = _stop_rule(
+                torch.from_numpy(rp), torch.from_numpy(pf[idx]), torch.from_numpy(keep1), carry, int(max_rejected)
             )
+            aligned, stopped = aligned.numpy(), stopped.numpy()[seg_prof[live]]
         else:
             aligned = np.ones(len(keep1), bool)
             stopped = np.zeros(len(live), bool)
@@ -1082,45 +1102,55 @@ def _run_profile_major(
     )
 
 
-def _max_rejected_mask(seg_q, keep, carry, max_rejected):
-    """Emulate MMseqs2's --max-rejected stop rule on batched results.
+def _walk_order(profs: torch.Tensor, pf: torch.Tensor) -> torch.Tensor:
+    """The permutation into the reference's per-profile walk order (the
+    swapped prefilter order): profile ascending, ungapped prefilter score
+    descending, and on ties the input order, which lists each profile's
+    genes ascending (PARITY.md). One stable sort of the int64 key
+    ``profile << 32 | desc(pf)``: ``desc`` maps the f32 bits onto [0, 2^32)
+    in descending order of the score, with -0.0 folded onto +0.0 (scores
+    are finite)."""
+    pf = torch.where(pf == 0, torch.zeros_like(pf), pf)
+    bits = pf.view(torch.int32).long() & 0xFFFFFFFF
+    desc = torch.where(bits >= 1 << 31, bits, (1 << 31) - 1 - bits)
+    return torch.sort((profs.long() << 32) | desc, stable=True).indices
 
-    seg_q: (N,) align-stage-QUERY index per pair — the PROFILE id in the
-    reference's swapped orientation — grouped in contiguous segments with
-    pairs in that query's candidate-list (swapped prefilter score) order;
-    keep: (N,) pass-1 accept flags; carry: per-segment-key
-    consecutive-rejection runs carried in (all zero for a single full-table
-    pass, which is how the streaming search applies the rule).
 
-    Returns (aligned (N,) — pairs the reference would actually have
-    aligned, updated carry, stopped (S,) flags aligned with the order of
-    distinct segments in seg_q). A stop triggers AT the max_rejected-th
-    consecutive rejection: that pair is aligned (and rejected), everything
-    after it in the list is not.
+def _stop_rule(profs, pf, keep, carry, max_rejected):
+    """MMseqs2's ``--max-rejected`` stop rule over a table of pairs, in
+    torch ops on the tensors' device: the card for the streaming search's
+    records, the CPU for profile-major rounds and a mesh's host rows.
+
+    profs: (N,) profile id per pair, the align-stage QUERY in the
+    reference's swapped orientation; pf: (N,) f32 prefilter scores; keep:
+    (N,) bool pass-1 accepts; carry: (P,) int64 consecutive-rejection runs
+    carried in per profile id (all zero for a whole table). Each profile
+    walks its pairs in :func:`_walk_order` and stops AT its
+    ``max_rejected``-th consecutive rejection: that pair is aligned (and
+    rejected), every later one is not.
+
+    Returns aligned (N,) bool in the input order, the updated carry (P,)
+    and stopped (P,) bool, the profiles whose walk stopped in this table.
     """
     n = len(keep)
-    pos = np.arange(n, dtype=np.int64)
-    start = np.concatenate([[True], seg_q[1:] != seg_q[:-1]])
-    seg_ids = np.cumsum(start) - 1
-    seg_start_pos = pos[start]
-    uniq_q = seg_q[start]
-    # segmented "last keep position" via offset-encoded maximum.accumulate
-    off = seg_ids * np.int64(n + 2)
-    kp = np.where(keep, off + pos, np.int64(-1))
-    acc = np.maximum.accumulate(kp)
-    has_keep = acc >= off
-    no_keep_base = seg_start_pos[seg_ids] - 1 - carry[uniq_q][seg_ids]
-    last_keep = np.where(has_keep, acc - off, no_keep_base)
-    run = pos - last_keep  # consecutive rejections ending at i (0 at keeps)
-    trigger = (~keep) & (run >= max_rejected)
-    tpos = np.where(trigger, pos, np.int64(n))
-    stop_pos = np.minimum.reduceat(tpos, seg_start_pos)
-    aligned = pos <= stop_pos[seg_ids]
-    seg_end_pos = np.concatenate([seg_start_pos[1:], [n]]) - 1
-    stopped = stop_pos < n
-    new_carry = carry.copy()
-    new_carry[uniq_q] = np.where(stopped, 0, run[seg_end_pos])
-    return aligned, new_carry, stopped
+    order = _walk_order(profs, pf)
+    p, k = profs.long()[order], keep[order]
+    pos = torch.arange(n, device=keep.device)
+    # the last keep of each profile's walk: a cummax over the positions
+    # offset by profile (the walk ascends in profile); before the first,
+    # the position before the walk less the run carried in
+    off = p * (n + 2)
+    acc = torch.cummax(torch.where(k, off + pos, -1), 0).values
+    first = torch.searchsorted(p, p)  # where each profile's walk starts
+    run = pos - torch.where(acc >= off, acc - off, first - 1 - carry[p])  # rejections ending at each pair
+    trigger = torch.where(~k & (run >= max_rejected), pos, n)
+    stop = torch.full_like(carry, n).scatter_reduce(0, p, trigger, "amin")
+    aligned = torch.empty_like(k)
+    aligned[order] = pos <= stop[p]
+    stopped = stop < n
+    last = torch.searchsorted(p, p, right=True) - 1 == pos  # each walk's last pair
+    run_out = carry.scatter_reduce(0, p, torch.where(last, run, -1), "amax", include_self=False)
+    return aligned, torch.where(stopped, 0, run_out), stopped
 
 
 def search_sharded(query_names, query_seqs, db: ProfileDB, n_shards: int, **kwargs) -> dict:

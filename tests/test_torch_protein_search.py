@@ -59,12 +59,10 @@ def test_search_equals_jax_orientation_cases(evalue_thr, min_cov, max_rejected):
     assert got == ref
 
 
-@pytest.mark.parametrize("max_rejected", [0, 1, 2])
-def test_search_stop_rule_drops_later_accept_as_jax(max_rejected):
+def _fragment_case():
     """The case of test_search_max_rejected_drops_later_accept: a fragment
-    with a high prefilter score walks first and is rejected; at
-    max_rejected 1 its rejection stops the profile's list before the
-    full-length homolog."""
+    with a high prefilter score and a full-length homolog of one profile,
+    their gate E-values as JAX reports them."""
     db = ProfileDB.synthetic(seed=41, n_profiles=300, min_len=100, max_len=140, integral=True)
     target = 57
     cons = db.consensus(target)
@@ -79,6 +77,14 @@ def test_search_stop_rule_drops_later_accept_as_jax(max_rejected):
     for n in names:
         raw = (loose[n][2] * jps.LN2 + np.log(kk)) / lam
         evs[n] = kk * int(db.lengths[target]) * n_set * np.exp(-lam * raw)
+    return db, names, seqs, evs
+
+
+@pytest.mark.parametrize("max_rejected", [0, 1, 2])
+def test_search_stop_rule_drops_later_accept_as_jax(max_rejected):
+    """The fragment walks first and is rejected; at max_rejected 1 its
+    rejection stops the profile's list before the full-length homolog."""
+    db, names, seqs, evs = _fragment_case()
     thr = float(np.sqrt(evs["g_mut"] * evs["g_frag"]))
     ref, got = _both(names, seqs, db, evalue_threshold=thr, max_rejected=max_rejected)
     assert got == ref
@@ -146,6 +152,77 @@ def test_search_modes_equal_jax(monkeypatch, profile_major, kwargs):
     ref = jps.search(names, seqs, db, profile_major=False, **kwargs)
     got = tps.search(names, seqs, _twin(db), device="cpu", profile_major=profile_major, **kwargs)
     assert got == ref and len(ref) > 10
+
+
+@pytest.mark.parametrize("n", [0, 1, 100_000])
+@pytest.mark.parametrize("max_rejected", [1, 3, 280])
+def test_stop_rule_equals_the_jax_mask_after_its_lexsort(n, max_rejected):
+    """The port's stop rule (torch ops, here on CPU tensors) against the
+    JAX engine's NumPy mask over ``np.lexsort((genes, -pf, profs))``: the
+    same walk order, aligned pairs, carries out and stopped profiles. The
+    scores take a handful of values, -0.0 and +0.0 among them, so most
+    pairs tie; carries in are non-zero; a quarter of the profiles keep
+    nothing, so a walk of ~330 pairs reaches 280 rejections by itself, and
+    a quarter keep everything and never stop."""
+    rng = np.random.default_rng([n, max_rejected])
+    n_profiles = 300
+    genes = np.sort(rng.integers(0, 2_000, n)).astype(np.int32)  # as appended: genes ascending
+    profs = rng.integers(0, n_profiles, n).astype(np.int32)
+    pf = rng.choice(np.array([-3.5, -0.0, 0.0, 25.0, 31.5, 40.0], np.float32), n)
+    keep = rng.random(n) < np.array([0.0, 0.02, 0.4, 1.0], np.float32)[profs % 4]
+    carry = rng.integers(0, max_rejected, n_profiles).astype(np.int64)
+
+    order = np.lexsort((genes, -pf, profs))
+    walk = tps._walk_order(torch.from_numpy(profs), torch.from_numpy(pf))
+    np.testing.assert_array_equal(walk.numpy(), order)
+    aligned, new_carry, stopped = tps._stop_rule(
+        torch.from_numpy(profs), torch.from_numpy(pf), torch.from_numpy(keep), torch.from_numpy(carry.copy()), max_rejected
+    )
+    if n == 0:  # the JAX mask takes no empty table
+        ref_aligned, ref_carry, ref_stopped = np.zeros(0, bool), carry, np.zeros(0, bool)
+    else:
+        aligned_o, ref_carry, ref_stopped = jps._max_rejected_mask(profs[order], keep[order], carry.copy(), max_rejected)
+        ref_aligned = np.empty(n, bool)
+        ref_aligned[order] = aligned_o
+    uniq = np.unique(profs)  # the JAX mask's segments, in order
+    np.testing.assert_array_equal(aligned.numpy(), ref_aligned)
+    np.testing.assert_array_equal(new_carry.numpy(), ref_carry)
+    np.testing.assert_array_equal(stopped.numpy()[uniq], ref_stopped)
+    assert not stopped.numpy()[np.setdiff1d(np.arange(n_profiles), uniq)].any()
+    if n > 1:  # the rule fired, and not on every profile
+        assert 0 < ref_stopped.sum() < len(uniq)
+
+
+@pytest.mark.parametrize("case", ["two_groups", "fragment"])
+def test_streaming_records_stay_on_the_aligners_device(monkeypatch, case):
+    """The streaming search hands the stop rule one table of forward
+    records, tensors where the aligner left its stats (here the CPU), the
+    genes non-decreasing as the walk order's ties need (two prefilter
+    groups in the stop1 case of test_search_modes_equal_jax). Every forward
+    pair is finalized on the host, none on the card, and the hits equal
+    JAX's; in the fragment case the rule fires at max_rejected 1."""
+    if case == "two_groups":
+        db, names, seqs = _pm_case()
+        kwargs = {"max_rejected": 1, "evalue_threshold": 1e-12}
+    else:
+        db, names, seqs, evs = _fragment_case()
+        kwargs = {"max_rejected": 1, "evalue_threshold": float(np.sqrt(evs["g_mut"] * evs["g_frag"]))}
+    seen = []
+    real = tps._survivors
+    monkeypatch.setattr(tps, "_survivors", lambda *a, **k: seen.append(a) or real(*a, **k))
+    keys = ("pairs_forward", "pairs_reverse", "finalize.pairs_on_host", "finalize.pairs_on_card")
+    before = {k: tps.STATS[k] for k in keys}
+    got = tps.search(names, seqs, _twin(db), device="cpu", profile_major=False, **kwargs)
+    moved = {k: tps.STATS[k] - before[k] for k in keys}
+    assert got == jps.search(names, seqs, db, **kwargs)
+    assert len(got) > 10 if case == "two_groups" else "g_mut" not in got
+    ((genes, profs, pf, stats),) = seen
+    assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu" for t in (genes, profs, pf, stats))
+    assert bool((genes[1:] >= genes[:-1]).all()) and bool((genes[1:] > genes[:-1]).any())
+    assert moved["finalize.pairs_on_host"] == moved["pairs_forward"] == len(genes) and moved["finalize.pairs_on_card"] == 0
+    passed = int((stats[:, 3] <= np.float32(kwargs["evalue_threshold"])).sum())
+    # the stop rule drops pairs that passed the gate only where it fires
+    assert moved["pairs_reverse"] <= passed and (moved["pairs_reverse"] < passed) == (case == "fragment")
 
 
 def test_search_auto_selects_profile_major(monkeypatch):

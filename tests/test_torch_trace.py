@@ -229,11 +229,18 @@ def test_a_search_spans_its_stages_under_one_search_span():
     aligns = named("search.align")
     assert {s.attrs["pass"] for s in aligns} == {"forward", "reverse"}
     assert all(s.parent == search.id for s in aligns)
+    # the forward passes leave their stats on the device: only the reverse
+    # pass copies its results back, and the survivors of the stop rule come
+    # back inside the first finalize span
     for sync in named("search.align.sync"):
         launch = by_id[sync.parent]
         assert launch.name == "search.align.launch" and by_id[launch.parent].name == "search.align"
-    assert len(named("search.align.sync")) == len(aligns)
-    assert named("search.finalize") and all(s.parent == search.id for s in named("search.finalize"))
+        assert by_id[launch.parent].attrs["pass"] == "reverse"
+    assert len(named("search.align.sync")) == len([s for s in aligns if s.attrs["pass"] == "reverse"]) == 1
+    finalizes = named("search.finalize")
+    assert finalizes and all(s.parent == search.id for s in finalizes)
+    (fetch,) = named("search.finalize.sync")
+    assert fetch.parent == min(finalizes, key=lambda s: s.t0).id
     assert all(search.t0 <= s.t0 <= s.t1 <= search.t1 for s in recorded)
 
 
