@@ -20,14 +20,22 @@ call or group where the work happens:
   padded to T genes);
 - ``nn.windows``, ``nn.cache_bytes``: windows classified, bytes of the
   window caches written;
-- ``md5.bytes``: bytes hashed for the execution records.
+- ``md5.bytes``: bytes hashed for the execution records;
+- ``train.steps``, ``train.windows``, ``train.bp``: the trainer's steps,
+  the windows its batches held and their bases before padding;
+  ``train.nonfinite_losses``: steps whose loss was not finite, counted on
+  the device and read once per ``train.Trainer.fit`` call.
 
 Spans (:func:`span`): a name, the host's ``time.perf_counter`` at its start
 and end (the clock a profiler's trace is mapped onto), the thread, the
 enclosing span and the job. A job is the outermost span: ``end_to_end`` of
 ``cli.run_end_to_end``, or ``module.<name>`` of a module's ``main`` called
-on its own. The enclosing span crosses threads through ``contextvars``: the
-port submits to its thread pools through :func:`carry`. Spans record only
+on its own. The trainer (``train.Trainer``) records ``train.batches`` (a
+call's input) and, a step, ``train.step`` around ``train.forward``,
+``train.backward`` and ``train.optimizer``; each of the two outer spans is
+a job of its own. The enclosing span crosses threads through
+``contextvars``: the port submits to its thread pools through
+:func:`carry`. Spans record only
 while a ``torch.profiler`` session records, on any thread (the profiler's
 module-level flag); otherwise :func:`span` returns a shared no-op. Recorded
 spans stay in a bounded buffer (:func:`spans`), so profiling a run with
