@@ -27,7 +27,10 @@ only the full run, with no arguments, does.
               bit-equal to themselves on a rerun; times
               kernel, plain version and the PyTorch library call that
               computes the same function, beside the card's bound, and K2
-              and K3 with all, a quarter and none of the patches.
+              and K3 with all, a quarter and none of the patches; conv1's
+              gradient kernel (embed_conv_wgrad) at the training cell's
+              shapes against the exact sums, bitwise equal on a rerun, timed
+              beside float32 index_add_ and the index_put_ it replaces.
 4. sw       - holds K1 sw_pairs (Smith-Waterman) bit for bit against its
               plain version: the annotate path's buckets (Lq = Lp = 128,
               256, 384 and 512, N = 4096 pairs from an integral
@@ -83,7 +86,8 @@ only the full run, with no arguments, does.
               off): 20 steps of make_train_step at B = 64 windows of 5,997
               tokens, dropout 0.2, on a separable toy task (the loss must
               fall by 20%; every leaf's step-1 gradient finite and not all
-              zero); the training loop (train.Trainer.fit) on a labelled
+              zero; conv1's gradient kernel once a step); the training
+              loop (train.Trainer.fit) on a labelled
               FASTA of 20 batches (ms per step, windows/s, peak memory);
               one step at B = 4,
               dropout 0, on the card against the CPU; and
@@ -466,6 +470,89 @@ def kernel_phase(results: dict) -> None:
             f"{t['launches_per_batch']} launch(es) per nn batch"
         )
     log("# K2 by part: " + json.dumps(fused_reduce_parts(y, patches, w_patch, w_v)))
+    results["embed_conv_wgrad"] = embed_conv_wgrad_row()
+
+
+def train_windows(rng, n: int, length: int):
+    """(n, length) int32 tokens of the training cell's kind: random windows
+    with N runs, every third cut at a contig's end and padded with N, and,
+    in a batch of more than one, row 0 all N."""
+    from genomad_torch.ops import conv
+
+    bases = random_bases(rng, n, length + 3)
+    for row in bases[2::3]:
+        row[int(rng.integers(length // 3, length)) :] = 4
+    if n > 1:
+        bases[0] = 4
+    return conv.tokens_from_bases(torch.from_numpy(bases)).contiguous()
+
+
+def rel_l2(got, ref) -> float:
+    got, ref = got.double(), ref.double()
+    return float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+
+
+def embed_conv_wgrad_row() -> dict:
+    """conv1's gradient kernel at the training cell's shapes (B = 64, L =
+    5,997, V = 257, C = 128, f32), against the exact sums (the plain version
+    in float64) there, in a batch of one and at ragged shapes; bitwise equal
+    to itself on a rerun; timed beside its plain version (float32
+    ``index_add_``), the library path it replaces (the ``index_put_`` with
+    accumulation that autograd of the (B, L+5, 6C) gather runs) and its
+    bound. The kernel table's row."""
+    from genomad_torch.models import igloo
+    from genomad_torch.ops import conv
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 20)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    B, L, V, C = TRAIN_BATCH, igloo.WINDOW_TOKENS, igloo.VOCAB, igloo.CHANNELS
+    errs = {}
+    for Be, Le, Ce in ((B, L, C), (1, L, C), (3, 1001, 64), (4, 5, 32)):
+        tok = train_windows(rng, Be, Le).to(dev)
+        dout = torch.randn((Be, Le, Ce), generator=gen, device=dev)
+        dw, db = conv.embed_conv_wgrad(tok, dout, V)
+        exact = conv.embed_conv_wgrad_plain(tok, dout.double(), V)
+        errs[f"B{Be}_L{Le}_C{Ce}"] = max(rel_l2(dw, exact[0]), rel_l2(db, exact[1]))
+    if max(errs.values()) > WGRAD_REL_L2:
+        raise AssertionError(f"embed_conv_wgrad against the exact sums (relative L2): {errs}")
+    tok = train_windows(rng, B, L).to(dev)
+    dout = torch.randn((B, L, C), generator=gen, device=dev)
+    first, again = conv.embed_conv_wgrad(tok, dout, V), conv.embed_conv_wgrad(tok, dout, V)
+    bit_equal(again[0], first[0], "embed_conv_wgrad dW rerun")
+    bit_equal(again[1], first[1], "embed_conv_wgrad dbias rerun")
+    f32_gap = rel_l2(first[0], conv.embed_conv_wgrad_plain(tok, dout, V)[0])
+    torch.cuda.synchronize()
+    log(f"# embed_conv_wgrad against the exact sums, relative L2: {json.dumps(errs)}; against float32 index_add_ "
+        f"{f32_gap:.3g}; bitwise equal on a rerun")
+
+    # the library path: autograd of the gather table[padded] accumulates the
+    # gathered tensor's gradient into the (V+1, 6C) table with index_put_
+    padded = torch.nn.functional.pad(tok.long(), (5, 0), value=V)
+    gathered = torch.zeros((B, L + 5, 6 * C), device=dev)
+    for k in range(6):
+        gathered[:, k : k + L, k * C : (k + 1) * C] = dout
+    ms = cuda_time(lambda: conv.embed_conv_wgrad(tok, dout, V), iters=20)
+    plain_ms = cuda_time(lambda: conv.embed_conv_wgrad_plain(tok, dout, V), iters=3, warmup=1)
+    library_ms = cuda_time(lambda: torch.zeros((V + 1, 6 * C), device=dev).index_put_((padded,), gathered, accumulate=True), iters=3, warmup=1)
+    del gathered
+    bound_ms, bound_by = bound(dout.numel() * 4 + tok.numel() * 4 + 6 * V * C * 4 + C * 4)
+    log(f"# embed_conv_wgrad: {ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms:.4f}, bound {bound_ms:.4f} by {bound_by}), "
+        "1 call (2 launches) a training step")
+    return {
+        "name": "embed_conv_wgrad",
+        "route": "cuda",
+        "source": "genomad_torch/csrc/embed_conv_wgrad.cu",
+        "replaces": None,  # JAX's training step leaves conv1's gradient to XLA
+        "launches": None,  # filled from the train phase
+        "launches_per_batch": 1,  # a training step
+        "max_abs_err": max(errs.values()),  # relative L2 against the exact sums
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
 
 
 # name -> (B, bases per row, L positions)
@@ -2186,6 +2273,9 @@ TRAIN_STEPS = 20
 TRAIN_LR = 1e-3
 TRAIN_DROPOUT = 0.2
 TRAIN_CHECK_BATCH = 4
+# conv1's gradient kernel against the exact (float64) sums: float32's own
+# rounding in its order of summation
+WGRAD_REL_L2 = 1e-6
 # one step on the card against the same step on the CPU (f32, TF32 off):
 # the loss to a relative 1e-5, each leaf's gradient to 1e-4 of its max |g|
 TRAIN_LOSS_RTOL = 1e-5
@@ -2293,7 +2383,7 @@ def train_step_device_share(raw, tokens, labels) -> dict:
         return {"device_busy_share": f"not measured: {exc!r}"}
 
 
-def train_phase() -> dict:
+def train_phase(results: dict) -> dict:
     import os
     import socket
 
@@ -2302,15 +2392,23 @@ def train_phase() -> dict:
     from genomad_torch import train
     from genomad_torch.device import disable_tf32
     from genomad_torch.models import igloo
+    from genomad_torch.ops import conv
     from genomad_torch.parallel import mesh
 
     disable_tf32()
     raw = igloo.init_params(SEED)
     rng = np.random.default_rng(SEED + 11)
 
-    # (a) full width, B = 64, dropout on: the loss falls; step 1's gradients
+    # (a) full width, B = 64, dropout on: the loss falls; step 1's gradients;
+    # conv1's gradient kernel once a step
     tokens, labels = toy_windows(rng, TRAIN_BATCH, igloo.WINDOW_TOKENS)
+    launches = conv.embed_conv_wgrad.launches
     losses, ms, grads = train_steps(raw, "cuda", tokens, labels, TRAIN_STEPS, TRAIN_DROPOUT)
+    launches = conv.embed_conv_wgrad.launches - launches
+    if launches != TRAIN_STEPS:
+        raise AssertionError(f"conv1's gradient kernel ran {launches} times in {TRAIN_STEPS} steps")
+    if "embed_conv_wgrad" in results:
+        results["embed_conv_wgrad"]["launches"] = launches
     bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
     if bad:
         raise AssertionError(f"step 1: gradients not finite or all zero for {bad}")
@@ -2460,7 +2558,7 @@ def main(argv: list[str] | None = None) -> int:
             "mesh": lambda: mesh_phase(tmp / "annotate", db),
             "card-vs-cpu": lambda: card_vs_cpu_phase(tmp / "card_cpu"),
             "search": real_db_phase,
-            "train": train_phase,
+            "train": lambda: train_phase(results),
         }
         for name in phases:
             if failures:

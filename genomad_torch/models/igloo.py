@@ -26,8 +26,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from genomad_torch import trace
 from genomad_torch.device import disable_tf32, resolve_device
-from genomad_torch.ops import conv, patch_reduce
+from genomad_torch.ops import _build, conv, patch_reduce
 
 # Architecture constants (genomad/neural_network/model.py:15-27)
 WINDOW_TOKENS = 5_997
@@ -238,9 +239,10 @@ class IglooClassifier(torch.nn.Module):
 # Training-mode forward (dropout active): the JAX ``apply_train``
 # ---------------------------------------------------------------------------
 #
-# Plain differentiable PyTorch throughout, as JAX's apply_train leaves this
-# work to XLA: the K2/K4/K5 kernels have no backward, and their wrappers
-# refuse inputs that require a gradient.
+# Plain differentiable PyTorch, as JAX's apply_train leaves this work to XLA,
+# except conv1 (:class:`_Conv1`): K5 forward and its gradient kernel. The
+# K2/K4 kernels have no backward, and the wrappers refuse inputs that
+# require a gradient.
 
 
 def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -264,6 +266,30 @@ def _causal_embed_conv(tokens: torch.Tensor, kernel: torch.Tensor, bias: torch.T
     gathered = table[padded]  # (B, L+K-1, K*C)
     out = sum(gathered[:, k : k + length, k * channels : (k + 1) * channels] for k in range(k_size))
     return out + bias
+
+
+class _Conv1(torch.autograd.Function):
+    """conv1 without its LeakyReLU, :func:`_causal_embed_conv`'s function
+    with no (B, L+5, 6C) gather: ``conv.embed_conv`` forward (K5 on the
+    card; autograd runs it with grad mode off) and ``conv.embed_conv_wgrad``
+    backward (its kernel on the card), each taking its plain version on the
+    CPU. Only the tokens are saved. Counts its backward calls by path in
+    ``trace.COUNTERS``: ``conv1.wgrad_kernel``, ``conv1.wgrad_plain``."""
+
+    @staticmethod
+    def forward(ctx, tokens, kernel, bias):
+        tokens = tokens.to(torch.int32).contiguous()
+        ctx.save_for_backward(tokens)
+        ctx.vocab, ctx.dtype = kernel.shape[1], kernel.dtype
+        return conv.embed_conv(tokens, kernel, bias, apply_leaky=False)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (tokens,) = ctx.saved_tensors
+        on_card = _build.on_cuda(tokens, dout)
+        dw, dbias = conv.embed_conv_wgrad(tokens, dout.float().contiguous(), ctx.vocab)
+        trace.count("conv1.wgrad_kernel" if on_card else "conv1.wgrad_plain", 1)
+        return None, dw.to(ctx.dtype), dbias.to(ctx.dtype)
 
 
 def _causal_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -319,7 +345,7 @@ def apply_train(params: Params, tokens: torch.Tensor, generator: torch.Generator
         keep = masks[i].to(x.device)
         return torch.where(keep, x / (1 - dropout_rate), torch.zeros_like(x))
 
-    h1 = drop(_leaky_relu(_causal_embed_conv(tokens, p["conv1"]["kernel"], p["conv1"]["bias"])), 0)
+    h1 = drop(_leaky_relu(_Conv1.apply(tokens, p["conv1"]["kernel"], p["conv1"]["bias"])), 0)
     a = _igloo_kernel(h1, p["igloo1"])
     h2 = drop(_leaky_relu(_causal_conv(h1, p["conv2"]["kernel"], p["conv2"]["bias"])), 1)
     h3 = drop(_leaky_relu(_causal_conv(h2, p["conv3"]["kernel"], p["conv3"]["bias"])), 2)

@@ -33,7 +33,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("embed_conv", "causal_conv", "fused_reduce", "sw")
+SOURCES = ("embed_conv", "embed_conv_wgrad", "causal_conv", "fused_reduce", "sw")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

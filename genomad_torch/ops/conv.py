@@ -1,5 +1,6 @@
 """The IGLOO causal convolutions: kernels K5 (``embed_conv``, conv1) and K4
-(``causal_conv``, conv2/conv3).
+(``causal_conv``, conv2/conv3), and the gradient of conv1's table in the
+training step (``embed_conv_wgrad``, K5's transpose).
 
 Counterparts of ``genomad_tpu/ops/conv_pallas.py``. Each kernel is written
 by hand for Hopper in ``genomad_torch/csrc/`` (see the note at the top of
@@ -37,6 +38,10 @@ _SIGNATURES = {
     },
     "causal_conv": {
         "causal_conv_launch": [_build.P] * 4 + [_build.I] * 4 + [_build.F, _build.I, _build.P],
+    },
+    "embed_conv_wgrad": {
+        "embed_conv_wgrad_launch": [_build.P] * 4 + [_build.I] * 5 + [_build.P],
+        "embed_conv_wgrad_max_vocab": [],
     },
 }
 
@@ -203,6 +208,82 @@ def _check_embed(kernel: torch.Tensor, bias: torch.Tensor) -> tuple[int, int]:
     _build.require(C > 0 and C % per_slice == 0, f"the {kernel.dtype} kernel takes C a multiple of {per_slice}")
     _build.require(kernel.data_ptr() % 16 == 0, "the kernel takes a 16-byte aligned table")
     return V, C
+
+
+# ---------------------------------------------------------------------------
+# conv1's gradient in the training step: embed_conv_wgrad
+# ---------------------------------------------------------------------------
+
+
+def embed_conv_wgrad_plain(tokens: torch.Tensor, dout: torch.Tensor, vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`embed_conv_plain`'s table and bias (no
+    LeakyReLU) for ``dout`` (B, L, C): dW[k, v] = sum of dout[b, t] over
+    the positions with tokens[b, t-5+k] = v, causal positions adding to a
+    discarded row V; dbias = sum_v dW[5, v]. ``index_add_`` a tap, in tap
+    order, in dout's dtype (float32 below it)."""
+    length, channels = dout.shape[1], dout.shape[2]
+    padded = F.pad(tokens.long(), (HALO, 0), value=vocab)
+    flat = dout.reshape(-1, channels)
+    if flat.dtype not in (torch.float32, torch.float64):
+        flat = flat.float()
+    dw = flat.new_zeros((K_SIZE, vocab + 1, channels))
+    for k in range(K_SIZE):
+        dw[k].index_add_(0, padded[:, k : k + length].reshape(-1), flat)
+    dw = dw[:, :vocab]
+    return dw, dw[HALO].sum(0)
+
+
+def embed_conv_wgrad(tokens: torch.Tensor, dout: torch.Tensor, vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """conv1's table and bias gradients, (6, V, C) and (C,), from the
+    gradient ``dout`` (B, L, C) of its output before the LeakyReLU:
+    :func:`embed_conv_wgrad_plain`'s sums, bitwise the same from run to run.
+
+    tokens: (B, L) int32 in [0, vocab), as K5 takes them (trusted);
+    dout: float32, contiguous. On the card C is a multiple of 32 and
+    vocab at most the kernel's bound (its accumulator slice lives in shared
+    memory): see :func:`_check_wgrad`.
+    """
+    if not _build.on_cuda(tokens, dout):
+        return embed_conv_wgrad_plain(tokens, dout, vocab)
+    B, L, C, per_slice = _check_wgrad(tokens, dout, vocab)
+    plane = (K_SIZE * vocab + 1) * C  # dW, then dbias
+    out = torch.empty(plane, dtype=torch.float32, device=dout.device)
+    dw, dbias = out[: plane - C].view(K_SIZE, vocab, C), out[plane - C :]
+    if B * L == 0:
+        return dw.zero_(), dbias.zero_()
+    partial = torch.empty((per_slice, plane), dtype=torch.float32, device=dout.device)
+    lib = _build.load("embed_conv_wgrad", _SIGNATURES["embed_conv_wgrad"])
+    with torch.cuda.device(dout.device):
+        err = lib.embed_conv_wgrad_launch(
+            tokens.data_ptr(), dout.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            B, L, vocab, C, per_slice, _build.stream_ptr(dout.device),
+        )
+    _build.check(err, "embed_conv_wgrad")
+    embed_conv_wgrad.launches += 1
+    return dw, dbias
+
+
+embed_conv_wgrad.launches = 0
+
+WGRAD_SLICE = 32  # the kernel's channels a block
+
+
+def _check_wgrad(tokens: torch.Tensor, dout: torch.Tensor, vocab: int) -> tuple[int, int, int, int]:
+    """The checks the gradient kernel makes before it launches. Returns
+    (B, L, C, blocks a channel slice): each slice gets its share of the
+    SMs."""
+    _build.require(tokens.dim() == 2 and tokens.dtype == torch.int32, "tokens must be (B, L) int32")
+    _build.require(dout.dim() == 3 and dout.shape[:2] == tokens.shape, "dout must be (B, L, C) for (B, L) tokens")
+    _build.require(dout.dtype == torch.float32, "the gradient kernel takes float32")
+    _build.require(tokens.is_contiguous() and dout.is_contiguous(), "inputs must be contiguous")
+    _build.require(dout.data_ptr() % 16 == 0, "the gradient kernel takes a 16-byte aligned dout")
+    B, L, C = dout.shape
+    _build.require(C > 0 and C % WGRAD_SLICE == 0, f"the gradient kernel takes C a multiple of {WGRAD_SLICE}")
+    lib = _build.load("embed_conv_wgrad", _SIGNATURES["embed_conv_wgrad"])
+    max_vocab = lib.embed_conv_wgrad_max_vocab()
+    _build.require(1 <= vocab <= max_vocab, f"the gradient kernel takes V <= {max_vocab} (its accumulator slice lives in shared memory)")
+    sms = torch.cuda.get_device_properties(dout.device).multi_processor_count
+    return B, L, C, max(1, sms // (C // WGRAD_SLICE))
 
 
 # ---------------------------------------------------------------------------

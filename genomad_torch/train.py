@@ -7,8 +7,9 @@ AdamW, one step on one device (``make_train_step``) or data-parallel over a
 ``torch.distributed`` group (``make_sharded_train_step``), and the loop from
 labelled FASTA files to steps (:class:`Trainer`).
 
-The forward is ``igloo.apply_train``, plain differentiable PyTorch, as the
-JAX step runs XLA's forms and not the Pallas kernels. Integer leaves (the
+The forward is ``igloo.apply_train``, differentiable PyTorch as the JAX
+step runs XLA's forms, with conv1 through K5 and its gradient kernel on the
+card (``igloo._Conv1``). Integer leaves (the
 patch positions) are partitioned out of the trained leaves. The port's
 prepared dict holds no derived leaves; ``_DERIVED_KEYS`` keeps the JAX
 names so that both partitions have the same keys.

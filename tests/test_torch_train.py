@@ -213,6 +213,118 @@ def test_init_train_state_without_cuda_raises():
 
 
 # ---------------------------------------------------------------------------
+# conv1 in the training forward: K5 forward, its gradient kernel backward
+# ---------------------------------------------------------------------------
+
+
+def _conv1_case(name):
+    """(tokens (B, L) int32, kernel (6, V, C), bias (C,)): tokens heavy in
+    the N token 0 (runs and padding past a contig's end), an all-N row, and
+    the model's V = 257."""
+    rng = np.random.default_rng(list(b"conv1") + [len(name)])
+    B, L, V, C = {"tiny": (3, 40, 9, 8), "n_heavy": (4, 130, 257, 16), "all_n_row": (3, 97, 257, 8)}[name]
+    tokens = rng.integers(1, V, (B, L)).astype(np.int32)
+    tokens[:, 11::13] = 0
+    if name != "tiny":
+        tokens[0, 20:75] = 0  # an N run
+        tokens[1, L // 2 :] = 0  # a contig's end, N padding
+        tokens[2, :3] = 0  # N inside the causal edge
+        tokens[2, 50::9] = 0
+    if name == "all_n_row":
+        tokens[0] = 0
+    kernel = rng.normal(0, 0.2, (6, V, C)).astype(np.float32)
+    bias = rng.normal(0, 0.2, C).astype(np.float32)
+    return tokens, kernel, bias
+
+
+CONV1_CASES = ("tiny", "n_heavy", "all_n_row")
+
+
+@pytest.mark.parametrize("name", CONV1_CASES)
+def test_conv1_function_forward_bit_equal_causal_embed_conv(name):
+    tokens, kernel, bias = (torch.from_numpy(a) for a in _conv1_case(name))
+    got = tig._Conv1.apply(tokens, kernel.requires_grad_(), bias.requires_grad_())
+    want = tig._causal_embed_conv(tokens, kernel, bias)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", CONV1_CASES)
+def test_conv1_function_gradients_equal_autograd_and_jax(name):
+    """The kernel's and bias's gradients of sum(out * g) through the
+    Function, through autograd of ``_causal_embed_conv``'s gather and
+    through ``jax.value_and_grad`` of the JAX package's ``_causal_embed_conv``."""
+    tokens, kernel, bias = _conv1_case(name)
+    # mean 0.3: the sums lie far from 0, where float32's order of summation
+    # alone would read as a relative difference
+    g = np.random.default_rng(7).normal(0.3, 1.0, size=(*tokens.shape, kernel.shape[2])).astype(np.float32)
+    grads = {}
+    for form, fn in (("function", tig._Conv1.apply), ("autograd", tig._causal_embed_conv)):
+        k, b = torch.from_numpy(kernel).requires_grad_(), torch.from_numpy(bias).requires_grad_()
+        (fn(torch.from_numpy(tokens), k, b) * torch.from_numpy(g)).sum().backward()
+        grads[form] = (k.grad.numpy(), b.grad.numpy())
+    grads["jax"] = jax.grad(lambda k, b: jnp.sum(jig._causal_embed_conv(jnp.asarray(tokens), k, b) * g), argnums=(0, 1))(
+        jnp.asarray(kernel), jnp.asarray(bias)
+    )
+    for form in ("autograd", "jax"):
+        for got, want, leaf in zip(grads["function"], grads[form], ("kernel", "bias")):
+            np.testing.assert_allclose(got, np.asarray(want), **GRAD_TOL, err_msg=f"{form} {leaf}")
+    assert np.any(grads["function"][0][:, 0] != 0)  # the N token's rows were reached
+
+
+def test_embed_conv_wgrad_plain_equals_index_add_by_hand():
+    from genomad_torch.ops import conv
+
+    rng = np.random.default_rng(3)
+    B, L, V, C = 2, 9, 5, 3
+    tokens = rng.integers(0, V, (B, L)).astype(np.int32)
+    tokens[1, 2:6] = 0
+    dout = rng.normal(size=(B, L, C))
+    dw, dbias = conv.embed_conv_wgrad_plain(torch.from_numpy(tokens), torch.from_numpy(dout), V)
+    want = np.zeros((6, V, C))
+    for b in range(B):
+        for t in range(L):
+            for k in range(6):
+                if t - 5 + k >= 0:  # causal positions add to no row
+                    want[k, tokens[b, t - 5 + k]] += dout[b, t]
+    np.testing.assert_allclose(dw.numpy(), want, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(dbias.numpy(), dout.sum(axis=(0, 1)), rtol=1e-12)
+    # float32 dout sums in float32
+    dw32, db32 = conv.embed_conv_wgrad_plain(torch.from_numpy(tokens), torch.from_numpy(dout.astype(np.float32)), V)
+    assert dw32.dtype == db32.dtype == torch.float32
+    np.testing.assert_allclose(dw32.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_conv1_backward_counts_its_path_by_device():
+    """On the CPU the step's conv1 backward takes the plain pair, once a step."""
+    from genomad_torch import trace
+
+    raw, tokens, labels = _case(1)
+    state = _state(raw)
+    before = {k: trace.COUNTERS[k] for k in ("conv1.wgrad_kernel", "conv1.wgrad_plain")}
+    step = ttrain.make_train_step(ttrain.make_optimizer(1e-3), dropout_rate=0.0)
+    for _ in range(2):
+        state, _ = step(state, torch.from_numpy(tokens), torch.from_numpy(labels), None)
+    assert trace.COUNTERS["conv1.wgrad_plain"] - before["conv1.wgrad_plain"] == 2
+    assert trace.COUNTERS["conv1.wgrad_kernel"] == before["conv1.wgrad_kernel"]
+
+
+def test_conv1_function_takes_bfloat16_leaves():
+    """A bfloat16 table and bias: K5's plain form forward (f32 sums rounded
+    once), the gradients back in bfloat16."""
+    tokens, kernel, bias = (torch.from_numpy(a) for a in _conv1_case("n_heavy"))
+    k16, b16 = kernel.bfloat16().requires_grad_(), bias.bfloat16().requires_grad_()
+    out = tig._Conv1.apply(tokens, k16, b16)
+    assert out.dtype == torch.bfloat16
+    from genomad_torch.ops import conv
+
+    assert torch.equal(out, conv.embed_conv_plain(tokens, k16.detach(), b16.detach(), apply_leaky=False))
+    out.float().sum().backward()
+    assert k16.grad.dtype == b16.grad.dtype == torch.bfloat16
+    counts = torch.stack([torch.bincount(torch.nn.functional.pad(tokens.long(), (5, 0), value=257)[:, k : k + tokens.shape[1]].reshape(-1), minlength=258)[:257] for k in range(6)])
+    torch.testing.assert_close(k16.grad.float(), counts[:, :, None].float().expand(-1, -1, kernel.shape[2]), rtol=1e-2, atol=0)
+
+
+# ---------------------------------------------------------------------------
 # The data-parallel step in two gloo processes
 # ---------------------------------------------------------------------------
 
