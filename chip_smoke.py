@@ -1514,7 +1514,7 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
     if nn_launches:
         raise AssertionError("the nn kernels ran on the annotate path")
     if native.native_prefilter_batch.uses <= 0:
-        raise AssertionError("the native C++ prefilter did not run (numpy fallback)")
+        raise AssertionError("the C++ prefilter served no call of the search")
 
     # the module's own stage timers, in the log in order: gene-calling, marker-search
     gene_s, search_s = map(float, re.findall(r"completed in ([0-9.]+)s", outputs.annotate_log.read_text()))

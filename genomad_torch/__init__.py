@@ -21,6 +21,14 @@ K3, the patch reduction without the value projection.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version.
+
+Native code is built at first use through ``genomad_torch.build_dir``: the
+kernels with ``nvcc``, and the k-mer prefilter, a C++ library
+(``native/prefilter.cpp``) and the only prefilter, with a host C++
+compiler. A build that fails raises with the compiler's output; there is no
+slower path to fall back to. The JAX package's
+``genomad_tpu/ops/protein_search.py`` states the prefilter's algorithm in
+NumPy (``prefilter_query``).
 """
 
 __version__ = "0.5.0"

@@ -1,122 +1,67 @@
-"""Native (C++) host-side components.
+"""The marker search's prefilter: the C++ library ``prefilter.cpp``.
 
-A copy of ``genomad_tpu/native`` with two changes. ``prefilter_batch``
-returns its own counts (queries, index hits, expanded codes, candidates,
-the workers' seconds and the call's thread slots) through an out-array,
-on every call, in place of the JAX copy's stderr report under an
-environment switch. And the shared library is compiled on first use
-with g++ (-O3 -march=native) into the port's build dir
-(``genomad_torch/build/``, gitignored, or the user cache when the
-installed package cannot be written: ``genomad_torch.build_dir``), not
-next to the source, under a name that hashes the source and the flags
-(``genomad_torch.build_dir.library_name``, as for the kernels), and the
-build is atomic (each process compiles to a private file and renames it),
-so concurrent first uses never load a half-written library. Every native entry
-point has a pure numpy fallback in genomad_torch.ops, so the package works
-without a toolchain; the native path is selected automatically when
-available. ``native_prefilter_batch.uses`` counts the calls the native
-library served; each call adds the library's own counts to the port's
+It is the port's one prefilter. It is compiled at first use with ``g++``
+(``_GXX_FLAGS``) through ``genomad_torch.build_dir``, as the kernels are
+with ``nvcc``, into the port's build dir under a name that hashes the
+source and the flags. A host without a C++ compiler gets the compiler's
+error, not a slower path. The algorithm is stated in NumPy by the JAX
+package's ``genomad_tpu/ops/protein_search.py`` (``prefilter_query``),
+which the tests hold the search to.
+
+``prefilter_batch`` returns its own counts (queries, index hits, expanded
+codes, candidates, the workers' seconds and the call's thread slots)
+through an out-array on every call. ``native_prefilter_batch.uses`` counts
+the calls the library served; each call adds those counts to the port's
 counters (``genomad_torch.trace``, ``prefilter.*``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
+import functools
 from pathlib import Path
 
 import numpy as np
 
 from genomad_torch import trace
-from genomad_torch.build_dir import build_dir, library_name
+from genomad_torch.build_dir import compile_library, load_library
 
-_DIR = Path(__file__).parent
-_SOURCES = sorted(_DIR.glob("*.cpp"))
+_SOURCES = sorted(Path(__file__).parent.glob("*.cpp"))
+_CXX = "g++"
 _GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread"]
-_LIB_PATH = build_dir() / library_name("genomad_native", _SOURCES, _GXX_FLAGS)
-_lib = None
-_lib_failed = False
+_SIGNATURE = [
+    ctypes.POINTER(ctypes.c_int32),   # code_table (20^5+1 offsets)
+    ctypes.POINTER(ctypes.c_int32),   # entry_pairs (interleaved)
+    ctypes.c_int64,                   # n_profiles (stamp-table size)
+    ctypes.POINTER(ctypes.c_int64),   # query_codes (concat)
+    ctypes.POINTER(ctypes.c_int64),   # code_offsets
+    ctypes.POINTER(ctypes.c_int8),    # residues (concat)
+    ctypes.POINTER(ctypes.c_int64),   # residue_offsets
+    ctypes.c_int64,                   # n_queries
+    ctypes.POINTER(ctypes.c_float),   # pssm
+    ctypes.POINTER(ctypes.c_int8),    # pssm8 (NULL = f32 scan)
+    ctypes.POINTER(ctypes.c_int64),   # offsets
+    ctypes.POINTER(ctypes.c_int32),   # lengths
+    ctypes.c_float,                   # min_ungapped_score
+    ctypes.POINTER(ctypes.c_float),   # subst (20x20; NULL = exact only)
+    ctypes.c_float,                   # kmer_thr
+    ctypes.c_float,                   # kmer_slack (tables at thr-slack)
+    ctypes.POINTER(ctypes.c_int32),   # comp-bias ints (NULL = off)
+    ctypes.POINTER(ctypes.c_int32),   # out_profiles
+    ctypes.POINTER(ctypes.c_float),   # out_scores (NULL = discard)
+    ctypes.POINTER(ctypes.c_int64),   # out_counts (uncapped totals)
+    ctypes.c_int64,                   # max_out_per_query
+    ctypes.c_int32,                   # n_threads
+    ctypes.POINTER(ctypes.c_double),  # out_work (6)
+]
 
 
-def _build() -> bool:
-    sources = [str(p) for p in _SOURCES]
-    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", *_GXX_FLAGS, *sources, "-o", str(tmp)]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _LIB_PATH)
-        return True
-    except (OSError, subprocess.SubprocessError):
-        tmp.unlink(missing_ok=True)
-        return False
-
-
-def get_library():
-    """The loaded native library, or None if unavailable."""
-    global _lib, _lib_failed
-    if _lib is not None or _lib_failed:
-        return _lib
-    if not _LIB_PATH.exists():
-        if not _build():
-            _lib_failed = True
-            return None
-    try:
-        lib = ctypes.CDLL(str(_LIB_PATH))
-    except OSError:
-        _lib_failed = True
-        return None
-    lib.prefilter_batch.restype = ctypes.c_int64
-    lib.prefilter_batch.argtypes = [
-        ctypes.POINTER(ctypes.c_int32),   # code_table (20^5+1 offsets)
-        ctypes.POINTER(ctypes.c_int32),   # entry_pairs (interleaved)
-        ctypes.c_int64,                   # n_profiles (stamp-table size)
-        ctypes.POINTER(ctypes.c_int64),   # query_codes (concat)
-        ctypes.POINTER(ctypes.c_int64),   # code_offsets
-        ctypes.POINTER(ctypes.c_int8),    # residues (concat)
-        ctypes.POINTER(ctypes.c_int64),   # residue_offsets
-        ctypes.c_int64,                   # n_queries
-        ctypes.POINTER(ctypes.c_float),   # pssm
-        ctypes.POINTER(ctypes.c_int8),    # pssm8 (NULL = f32 scan)
-        ctypes.POINTER(ctypes.c_int64),   # offsets
-        ctypes.POINTER(ctypes.c_int32),   # lengths
-        ctypes.c_float,                   # min_ungapped_score
-        ctypes.POINTER(ctypes.c_float),   # subst (20x20; NULL = exact only)
-        ctypes.c_float,                   # kmer_thr
-        ctypes.c_float,                   # kmer_slack (tables at thr-slack)
-        ctypes.POINTER(ctypes.c_int32),   # comp-bias ints (NULL = off)
-        ctypes.POINTER(ctypes.c_int32),   # out_profiles
-        ctypes.POINTER(ctypes.c_float),   # out_scores (NULL = discard)
-        ctypes.POINTER(ctypes.c_int64),   # out_counts (uncapped totals)
-        ctypes.c_int64,                   # max_out_per_query
-        ctypes.c_int32,                   # n_threads
-        ctypes.POINTER(ctypes.c_double),  # out_work (6)
-    ]
-    lib.prefilter_query.restype = ctypes.c_int64
-    lib.prefilter_query.argtypes = [
-        ctypes.POINTER(ctypes.c_int32),   # code_table (20^5+1 offsets)
-        ctypes.POINTER(ctypes.c_int32),   # entry_pairs (interleaved)
-        ctypes.c_int64,                   # n_profiles (stamp-table size)
-        ctypes.POINTER(ctypes.c_int64),   # query_codes
-        ctypes.c_int64,                   # n_codes
-        ctypes.POINTER(ctypes.c_int8),    # residues
-        ctypes.c_int64,                   # query_length
-        ctypes.POINTER(ctypes.c_float),   # pssm
-        ctypes.POINTER(ctypes.c_int8),    # pssm8 (NULL = f32 scan)
-        ctypes.POINTER(ctypes.c_int64),   # offsets
-        ctypes.POINTER(ctypes.c_int32),   # lengths
-        ctypes.c_float,                   # min_ungapped_score
-        ctypes.POINTER(ctypes.c_float),   # subst (20x20; NULL = exact only)
-        ctypes.c_float,                   # kmer_thr
-        ctypes.c_float,                   # kmer_slack (tables at thr-slack)
-        ctypes.POINTER(ctypes.c_int32),   # comp-bias ints (NULL = off)
-        ctypes.POINTER(ctypes.c_int32),   # out_profiles
-        ctypes.POINTER(ctypes.c_float),   # out_scores (NULL = discard)
-        ctypes.c_int64,                   # max_out
-    ]
-    _lib = lib
-    return _lib
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The prefilter's library, built if needed; raises ``RuntimeError``
+    with the compiler's output when it cannot be built."""
+    path, _ = compile_library("genomad_native", _CXX, _SOURCES, _GXX_FLAGS)
+    return load_library(path, {"prefilter_batch": _SIGNATURE}, restype=ctypes.c_int64)
 
 
 def _ptr(array: np.ndarray, ctype):
@@ -143,13 +88,14 @@ def native_prefilter_batch(
 
     Returns (per-query candidate id arrays sorted by ungapped score
     descending, per-query score arrays in the same order, total dropped
-    over the max_out_per_query cap), or None when the native library is
-    unavailable. Counts ``prefilter.queries``, ``.hits``, ``.codes``,
-    ``.candidates``, ``.thread_s`` and ``.slot_s`` (``genomad_torch.trace``).
+    over the max_out_per_query cap); empty lists and 0 for no queries.
+    Raises ``RuntimeError`` when the library cannot be built. Counts
+    ``prefilter.queries``, ``.hits``, ``.codes``, ``.candidates``,
+    ``.thread_s`` and ``.slot_s`` (``genomad_torch.trace``).
     """
-    lib = get_library()
-    if lib is None or not residues_list:
-        return None
+    if not residues_list:
+        return [], [], 0
+    lib = library()
     from genomad_torch import utils
     from genomad_torch.ops.profiledb import encode_kmers
 
@@ -158,11 +104,10 @@ def native_prefilter_batch(
     codes_list = [np.ascontiguousarray(encode_kmers(r), np.int64) for r in residues_list]
     code_offsets = np.zeros(len(codes_list) + 1, np.int64)
     np.cumsum([len(c) for c in codes_list], out=code_offsets[1:])
-    codes = np.concatenate(codes_list) if codes_list else np.zeros(0, np.int64)
+    codes = np.concatenate(codes_list)
     residue_offsets = np.zeros(len(residues_list) + 1, np.int64)
     np.cumsum([len(r) for r in residues_list], out=residue_offsets[1:])
     residues = np.ascontiguousarray(np.concatenate(residues_list), np.int8)
-    codes = np.ascontiguousarray(codes, np.int64)
     code_table = np.ascontiguousarray(index.table, np.int32)
     entry_pairs = np.ascontiguousarray(index.pairs, np.int32)
     offsets = np.ascontiguousarray(db.offsets, np.int64)
@@ -249,20 +194,6 @@ def _pssm8_arg(db):
     return _ptr(p8, ctypes.c_int8)
 
 
-def _bias_args(bias, keepalive: list):
-    """(slack, bias pointer) ctypes args for comp-bias correction. The
-    converted copy is appended to ``keepalive``, held by the caller for
-    the duration of the C call (bias arrays are per-call, so a
-    function-attribute pin would be overwritten by concurrent calls)."""
-    if bias is None:
-        return (0.0, ctypes.POINTER(ctypes.c_int32)())
-    from genomad_torch.ops.blosum import COMP_BIAS_SLACK
-
-    b = np.ascontiguousarray(bias, np.int32)
-    keepalive.append(b)
-    return (float(COMP_BIAS_SLACK), _ptr(b, ctypes.c_int32))
-
-
 def _subst_args(kmer_thr: float | None, keepalive: list):
     """(subst pointer, threshold) ctypes args for the expansion mode."""
     if kmer_thr is None:
@@ -272,53 +203,3 @@ def _subst_args(kmer_thr: float | None, keepalive: list):
     subst = np.ascontiguousarray(BLOSUM62, np.float32)
     keepalive.append(subst)
     return (_ptr(subst, ctypes.c_float), float(kmer_thr))
-
-
-def native_prefilter_query(
-    index,
-    residues,
-    db,
-    min_ungapped_score: float,
-    max_out: int = 100_000,
-    kmer_thr: float | None = None,
-    bias=None,
-):
-    """Native prefilter (see prefilter.cpp). Returns (profile ids, ungapped
-    scores) sorted by score descending, or None when the native library is
-    unavailable. ``bias``: int32 comp-bias array (blosum.comp_bias)."""
-    lib = get_library()
-    if lib is None:
-        return None
-    from genomad_torch.ops.profiledb import encode_kmers
-
-    keepalive: list = []
-    codes = np.ascontiguousarray(encode_kmers(residues), np.int64)
-    residues = np.ascontiguousarray(residues, np.int8)
-    code_table = np.ascontiguousarray(index.table, np.int32)
-    entry_pairs = np.ascontiguousarray(index.pairs, np.int32)
-    offsets = np.ascontiguousarray(db.offsets, np.int64)
-    lengths = np.ascontiguousarray(db.lengths, np.int32)
-    out = np.zeros(max_out, np.int32)
-    out_scores = np.zeros(max_out, np.float32)
-    n = lib.prefilter_query(
-        _ptr(code_table, ctypes.c_int32),
-        _ptr(entry_pairs, ctypes.c_int32),
-        int(db.n_profiles),
-        _ptr(codes, ctypes.c_int64),
-        len(codes),
-        _ptr(residues, ctypes.c_int8),
-        len(residues),
-        _pssm_f32_arg(db, keepalive),
-        _pssm8_arg(db),
-        _ptr(offsets, ctypes.c_int64),
-        _ptr(lengths, ctypes.c_int32),
-        float(min_ungapped_score),
-        *_subst_args(kmer_thr, keepalive),
-        *_bias_args(bias, keepalive),
-        _ptr(out, ctypes.c_int32),
-        _ptr(out_scores, ctypes.c_float),
-        max_out,
-    )
-    n = min(n, max_out)
-    del keepalive  # pinned through the C call above
-    return out[:n].copy(), out_scores[:n].copy()

@@ -1,10 +1,14 @@
 // Native prefilter: query k-mer lookup + ungapped diagonal extension.
 //
-// C++ counterpart of genomad_torch.ops.protein_search.prefilter_query — the
-// host-side stage that replaces MMseqs2's C++ prefilter (reference chain:
-// genomad/mmseqs2.py:76-96, `mmseqs prefilter -k 5 --min-ungapped-score 25
-// --max-seqs 10000000`). The device-side alignment runs on the GPU; this stage
-// is a sparse integer workload (inverted-index lookups), hence native CPU.
+// The port's one prefilter: the host-side stage of
+// genomad_torch.ops.protein_search.search that replaces MMseqs2's C++
+// prefilter (reference chain: genomad/mmseqs2.py:76-96, `mmseqs prefilter
+// -k 5 --min-ungapped-score 25 --max-seqs 10000000`). The device-side
+// alignment runs on the GPU; this stage is a sparse integer workload
+// (inverted-index lookups), hence native CPU. It is built at first use with
+// a host C++ compiler (genomad_torch.native), as the kernels are with nvcc;
+// a host without one gets an error, not another path. The algorithm is
+// stated in NumPy by genomad_tpu/ops/protein_search.py's prefilter_query.
 //
 // Algorithm:
 //   1. each query 5-mer expands into its similar-k-mer list (score vs the
@@ -722,41 +726,6 @@ static void prefilter_group_impl(
     work[0] += n_hits;
     work[1] += n_exp_codes;
     work[2] += static_cast<int64_t>(cand.size());
-}
-
-int64_t prefilter_query(
-    const int32_t* code_table,
-    const int32_t* entry_pairs,  // interleaved [profile, position]
-    int64_t n_profiles,
-    const int64_t* query_codes,
-    int64_t n_codes,
-    const int8_t* residues,
-    int64_t query_length,
-    const float* pssm,
-    const int8_t* pssm8,
-    const int64_t* offsets,
-    const int32_t* lengths,
-    float min_ungapped_score,
-    const float* subst,
-    float kmer_thr,
-    float kmer_slack,         // tables built at kmer_thr - kmer_slack
-    const int32_t* bias,      // per-position comp-bias ints; null = off
-    int32_t* out_profiles,
-    float* out_scores,
-    int64_t max_out) {
-    const ExpTables* tables =
-        (subst != nullptr && kmer_thr < 1e30f)
-            ? get_tables(subst, kmer_thr - kmer_slack)
-            : nullptr;
-    Scratch scratch;
-    QueryView qv{query_codes, n_codes, residues, query_length, out_profiles,
-                 out_scores, bias};
-    int64_t count = 0;
-    int64_t work[3] = {0, 0, 0};
-    prefilter_group_impl(code_table, entry_pairs, n_profiles, &qv, 1, pssm,
-                         pssm8, offsets, lengths, min_ungapped_score, tables,
-                         kmer_thr, &count, max_out, scratch, work);
-    return count;
 }
 
 // Batched, multithreaded entry point: runs the prefilter over n_queries

@@ -2,12 +2,13 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use by ``nvcc`` into ``<build dir>/lib<name>-<hash>.so`` (the hash covers
-the sources and the flags, so an edited source is rebuilt), then loaded with
-``ctypes``. The build dir is ``genomad_torch/build/``, or the user cache
-when the installed package cannot be written (``genomad_torch.build_dir``).
-Nothing here includes PyTorch's headers: a build takes seconds. Pointers cross as ``c_void_p`` and the stream is PyTorch's
-current stream; every entry point returns ``cudaGetLastError()``, which
-:func:`check` turns into an exception.
+every source of ``csrc``, since the headers are shared, and the flags, so
+an edited source is rebuilt), then loaded with ``ctypes``: the build and
+the load are ``genomad_torch.build_dir``'s, which the C++ prefilter shares.
+Nothing here includes PyTorch's headers: a build takes seconds. Pointers
+cross as ``c_void_p`` and the stream is PyTorch's current stream; every
+entry point returns ``cudaGetLastError()``, which :func:`check` turns into
+an exception.
 
 Only the CUDA toolkit is needed (``nvcc`` on PATH, or under ``CUDA_HOME`` or
 ``/usr/local/cuda``). Nothing is built or loaded when this module is
@@ -19,16 +20,15 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
-import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-from genomad_torch.build_dir import PACKAGE_DIR, build_dir, library_name
+from genomad_torch.build_dir import PACKAGE_DIR, compile_library, library_path, load_library
 
 CSRC = PACKAGE_DIR / "csrc"
-BUILD_DIR = build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,31 +51,25 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     # every source of csrc, since the .cuh headers are shared
-    return BUILD_DIR / library_name(name, sorted(CSRC.glob("*.cu*")), NVCC_FLAGS)
+    return library_path(name, sorted(CSRC.glob("*.cu*")), NVCC_FLAGS)
 
 
 def build(names=SOURCES) -> dict[str, str]:
     """Compile the named kernels that are not built yet, one ``nvcc`` per
     source, all started together. Returns each build's compiler output
     (register and shared-memory use from ``-Xptxas -v``)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        target = _target(name)
-        if target.exists():
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, target)
-    logs = {}
-    failed = []
-    for name, (proc, tmp, target) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{out}")
-            continue
-        os.replace(tmp, target)
+    todo = [name for name in names if not _target(name).exists()]
+    if not todo:
+        return {}
+    nvcc, hashed = _nvcc(), sorted(CSRC.glob("*.cu*"))
+    with ThreadPoolExecutor(len(todo)) as pool:
+        futures = {name: pool.submit(compile_library, name, nvcc, [CSRC / f"{name}.cu"], NVCC_FLAGS, hashed) for name in todo}
+    logs, failed = {}, []
+    for name, future in futures.items():
+        try:
+            logs[name] = future.result()[1]
+        except RuntimeError as e:
+            failed.append(str(e))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
@@ -88,14 +82,9 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            target = _target(name)
-            if not target.exists():
+            if not _target(name).exists():
                 build((name,))
-            lib = ctypes.CDLL(str(target))
-            for fn, argtypes in signatures.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+            lib = _libs[name] = load_library(_target(name), signatures)
         return lib
 
 

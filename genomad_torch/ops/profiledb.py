@@ -49,14 +49,9 @@ def _advise_hugepages(arr: np.ndarray) -> None:
     TLB-resident. Best-effort no-op off Linux or on failure."""
     import ctypes
     import ctypes.util
-    import os
     import sys
 
-    if (
-        sys.platform != "linux"
-        or arr.nbytes < (1 << 22)
-        or os.environ.get("GENOMAD_NO_HUGEPAGES")
-    ):
+    if sys.platform != "linux" or arr.nbytes < (1 << 22):
         return
     try:
         libc = ctypes.CDLL(ctypes.util.find_library("c"), use_errno=True)

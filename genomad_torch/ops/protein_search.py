@@ -9,8 +9,11 @@ the reference's 8-command MMseqs2 subprocess chain (genomad/mmseqs2.py:
      the DB's consensus-k-mer inverted index; (profile, diagonal) hits are
      scored by maximal ungapped diagonal extension and gated at
      ``min_ungapped_score`` (25, ``--min-ungapped-score``). The C++
-     library in ``genomad_torch/native`` runs it multithreaded; the numpy
-     ``prefilter_query`` is the fallback on hosts without g++.
+     library in ``genomad_torch/native`` runs it multithreaded; it is the
+     only prefilter, and building it needs a host C++ compiler, as the
+     kernels need ``nvcc`` (a host without one gets an error). The JAX
+     package's ``genomad_tpu/ops/protein_search.py`` states the algorithm
+     in NumPy (``prefilter_query``).
 
   2. **Alignment** (device): affine-gap local Smith-Waterman of query
      residues against profile PSSMs, kernel K1 (``ops.sw.sw_pairs``, a
@@ -93,10 +96,10 @@ import warnings
 import numpy as np
 import torch
 
-from genomad_torch import trace
+from genomad_torch import native, trace
 from genomad_torch.device import resolve_device
 from genomad_torch.ops import profiledb
-from genomad_torch.ops.profiledb import KMER_K, N_AA, ProfileDB, encode_kmers
+from genomad_torch.ops.profiledb import N_AA, ProfileDB
 from genomad_torch.ops.sw import sw_pairs
 
 # Karlin-Altschul statistics (gapped BLOSUM62 regime).
@@ -208,149 +211,6 @@ def evalue(raw_score, query_length, db_positions, lam: float = KA_LAMBDA, k: flo
     """E-value of a raw score from its real-valued bitscore:
     m * n * 2^-bits (no integer rounding, unlike :func:`evalue_from_bits`)."""
     return query_length * db_positions * np.power(2.0, -bitscore(raw_score, lam, k))
-
-
-# ---------------------------------------------------------------------------
-# Prefilter (numpy fallback of the native library)
-# ---------------------------------------------------------------------------
-
-
-_EMPTY_CANDS = (np.zeros(0, np.int32), np.zeros(0, np.float32))
-
-
-def _max_subarray(scores: np.ndarray) -> np.ndarray:
-    """Row-wise maximal subarray sum (ungapped diagonal score), vectorized:
-    max_t(prefix_t - min(0, min_{k<t} prefix_k))."""
-    prefix = np.cumsum(scores, axis=1)
-    min_before = np.minimum(np.minimum.accumulate(prefix, axis=1), 0.0)
-    shifted = np.concatenate(
-        [np.zeros((scores.shape[0], 1)), min_before[:, :-1]], axis=1
-    )
-    return np.max(prefix - shifted, axis=1)
-
-
-def prefilter_query(
-    residues: np.ndarray,
-    db: ProfileDB,
-    index,
-    min_ungapped_score: float = 25.0,
-    max_candidates: int = 4000,
-    kmer_thr: float | None = None,
-    expansion_cache: dict | None = None,
-    drops: list | None = None,
-    bias: np.ndarray | None = None,
-):
-    """Candidate (profile ids, ungapped scores) for one query, sorted by
-    score descending (profile id ascending on ties) — MMseqs2's prefilter
-    result order, which stage 2 relies on for --max-rejected semantics.
-
-    Pipeline: query k-mers [-> similar-k-mer expansion] -> inverted-index
-    ranges -> (profile, diagonal) hits -> ungapped diagonal max-subarray
-    score -> gate.
-
-    ``kmer_thr``: BLOSUM62 score threshold for query-side similar-k-mer
-    expansion (MMseqs2 ``-s`` semantics, see ops.blosum); None = exact
-    k-mers only. ``expansion_cache``: shared {(code, bias sum): similar
-    codes} memo across queries of one search. ``drops``: when given, the
-    number of candidates dropped over ``max_candidates`` is appended (the
-    caller logs it — truncation is never silent). ``bias``: per-position
-    integer composition-bias corrections (blosum.comp_bias — MMseqs2's
-    default --comp-bias-corr 1): added to the diagonal scores and, summed
-    over each k-mer window (clamped at blosum.COMP_BIAS_SLACK), subtracted
-    from the expansion threshold.
-    """
-    codes = encode_kmers(residues)
-    qpos_all = np.arange(len(codes), dtype=np.int64)
-    valid = codes >= 0
-    codes, qpos_all = codes[valid], qpos_all[valid]
-    if kmer_thr is not None and len(codes):
-        from genomad_torch.ops import blosum
-
-        if bias is not None:
-            kb_win = np.convolve(bias, np.ones(KMER_K, np.int64), "valid")
-            kb_win = np.minimum(kb_win, int(blosum.COMP_BIAS_SLACK))
-        cache = expansion_cache if expansion_cache is not None else {}
-        exp_codes, exp_qpos = [], []
-        windows = np.lib.stride_tricks.sliding_window_view(residues, KMER_K)
-        for code, q in zip(codes, qpos_all):
-            kb = int(kb_win[q]) if bias is not None else 0
-            key = (int(code), kb)
-            sim = cache.get(key)
-            if sim is None:
-                sim = blosum.similar_kmers(windows[q], kmer_thr - kb)[0]
-                cache[key] = sim
-            exp_codes.append(sim)
-            exp_qpos.append(np.full(len(sim), q, np.int64))
-        codes = np.concatenate(exp_codes) if exp_codes else codes
-        qpos_all = np.concatenate(exp_qpos) if exp_qpos else qpos_all
-    if not len(codes):
-        return _EMPTY_CANDS
-    starts, ends = index.lookup(codes)
-    counts = ends - starts
-    total = int(counts.sum())
-    if total == 0:
-        return _EMPTY_CANDS
-    # expand [starts, ends) ranges into flat entry indices
-    entry_idx = np.repeat(starts - np.concatenate([[0], np.cumsum(counts)[:-1]]), counts) + np.arange(total)
-    hit_qpos = np.repeat(qpos_all, counts)
-    hit_profile = index.profiles[entry_idx]
-    hit_ppos = index.positions[entry_idx].astype(np.int64)
-    Lq = len(residues)
-    diag = hit_ppos - hit_qpos + Lq  # >= 1
-    # unique (profile, diagonal) candidates
-    max_diag = Lq + int(db.lengths.max()) + 1
-    keys = hit_profile.astype(np.int64) * max_diag + diag
-    uniq_keys, key_counts = np.unique(keys, return_counts=True)
-    if kmer_thr is not None:
-        # double-k-mer-match criterion (MMseqs2): in expansion mode a
-        # diagonal needs >= 2 hits before it is extended — similar-k-mer
-        # lists generate single-hit noise diagonals in bulk
-        keep2 = key_counts >= 2
-        uniq_keys, key_counts = uniq_keys[keep2], key_counts[keep2]
-    cand_profile = (uniq_keys // max_diag).astype(np.int32)
-    cand_diag = (uniq_keys % max_diag).astype(np.int64) - Lq
-    if len(uniq_keys) > max_candidates * 4:
-        # keep diagonals with the most k-mer hits to bound the gather below
-        top = np.argsort(key_counts)[::-1][: max_candidates * 4]
-        cand_profile, cand_diag = cand_profile[np.sort(top)], cand_diag[np.sort(top)]
-    # ungapped extension along each candidate diagonal
-    p_len = db.lengths[cand_profile].astype(np.int64)
-    q_start = np.maximum(0, -cand_diag)
-    p_start = np.maximum(0, cand_diag)
-    overlap = np.minimum(Lq - q_start, p_len - p_start)
-    C = len(cand_profile)
-    if C == 0:
-        return _EMPTY_CANDS
-    t = np.arange(Lq, dtype=np.int64)[None, :]
-    qi = q_start[:, None] + t  # (C, Lq)
-    pi = p_start[:, None] + t
-    in_range = t < overlap[:, None]
-    qi_c = np.minimum(qi, Lq - 1)
-    pi_c = np.minimum(pi, p_len[:, None] - 1)
-    flat_rows = db.offsets[cand_profile][:, None] + pi_c
-    res = residues[qi_c].astype(np.int64)
-    cell = db.pssm[flat_rows, np.where(res < N_AA, res, 0)]
-    if bias is not None:
-        cell = cell + bias[qi_c]
-    scores = np.where(in_range & (res < N_AA), cell, 0.0)
-    ungapped = _max_subarray(scores)
-    ok = ungapped >= min_ungapped_score
-    prof_ok, score_ok = cand_profile[ok], ungapped[ok].astype(np.float32)
-    if not len(prof_ok):
-        return _EMPTY_CANDS
-    # per-profile best score over its qualifying diagonals
-    uniq, inv = np.unique(prof_ok, return_inverse=True)
-    best = np.full(len(uniq), -np.inf, np.float32)
-    np.maximum.at(best, inv, score_ok)
-    order = np.lexsort((uniq, -best))
-    sel_ids, sel_scores = uniq[order].astype(np.int32), best[order]
-    if len(sel_ids) > max_candidates:
-        # keep the best-scoring profiles; the excess is reported via
-        # ``drops`` (and logged by the caller), never silently discarded
-        if drops is not None:
-            drops.append(len(sel_ids) - max_candidates)
-        sel_ids, sel_scores = sel_ids[:max_candidates], sel_scores[:max_candidates]
-    return sel_ids, sel_scores
 
 
 # ---------------------------------------------------------------------------
@@ -792,31 +652,14 @@ def search(
             if all_pairs:
                 ids = np.arange(db.n_profiles, dtype=np.int64)
                 return [(ids, np.zeros(db.n_profiles, np.float32))] * len(q_idx)
-            from genomad_torch import native
-
             with trace.timed("search.prefilter", "prefilter_s"):
                 res_sub = [residues_list[i] for i in q_idx]
                 bias_sub = [bias_list[i] for i in q_idx] if bias_list is not None else None
-                result = native.native_prefilter_batch(
+                ids_list, scores_list, n_dropped = native.native_prefilter_batch(
                     index, res_sub, db, min_ungapped_score,
                     kmer_thr=kmer_thr, max_out_per_query=out_bound,
                     n_threads=n_threads, bias_list=bias_sub,
                 )
-                if result is None:  # no C++ toolchain: numpy fallback
-                    cache: dict = {}
-                    drop_list: list = []
-                    out_list = []
-                    for i in q_idx:
-                        ids, scores = prefilter_query(
-                            residues_list[i], db, index, min_ungapped_score,
-                            max_candidates=out_bound, kmer_thr=kmer_thr,
-                            expansion_cache=cache, drops=drop_list,
-                            bias=None if bias_list is None else bias_list[i],
-                        )
-                        out_list.append((ids.astype(np.int64), scores.astype(np.float32)))
-                    drop_total[0] += sum(drop_list)
-                    return out_list
-                ids_list, scores_list, n_dropped = result
                 drop_total[0] += n_dropped
                 return [
                     (ids.astype(np.int64), scores.astype(np.float32))

@@ -27,9 +27,11 @@ import shutil
 import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from genomad_torch.build_dir import build_dir, compile_library, load_library
 from genomad_torch.ops import _build, conv
 
 # text in causal_conv.cu -> what each ablation puts in its place
@@ -65,28 +67,25 @@ def build_variants(name: str, sources: dict[str, str]) -> dict[str, ctypes.CDLL]
     """Each source text built as ``csrc/<name>.cu`` beside copies of the
     shared headers (one nvcc each, all started together) and loaded with
     the entry points of ``ops.conv._SIGNATURES[name]``."""
-    root = _build.BUILD_DIR / f"ablate_{name}"
+    root = build_dir() / f"ablate_{name}"
     shutil.rmtree(root, ignore_errors=True)
-    procs = {}
-    for i, (variant, text) in enumerate(sources.items()):
+    srcs = []
+    for i, text in enumerate(sources.values()):
         d = root / str(i)
         d.mkdir(parents=True)
         (d / f"{name}.cu").write_text(text)
         for header in _build.CSRC.glob("*.cuh"):
             shutil.copy(header, d)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / f"{name}.cu")]
-        procs[variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
-    libs = {}
-    for variant, (proc, d) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {variant}:\n{log}")
-        lib = ctypes.CDLL(str(d / "lib.so"))
-        for fn, argtypes in conv._SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[variant] = lib
-    return libs
+        srcs.append(d / f"{name}.cu")
+    nvcc = _build._nvcc()
+
+    def compile_one(src):
+        hashed = sorted(src.parent.glob("*.cu*"))
+        return compile_library(f"ablate_{name}", nvcc, [src], _build.NVCC_FLAGS, hashed)[0]
+
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        paths = list(pool.map(compile_one, srcs))
+    return {variant: load_library(path, conv._SIGNATURES[name]) for variant, path in zip(sources, paths)}
 
 
 def _ms(fn, iters: int = 50) -> float:

@@ -110,9 +110,10 @@ def search_turn(cs, label: str, package: Path) -> None:
 
     if not hasattr(ps, "join_prestage"):  # a tree from before the prestage: no thread to wait for
         ps.join_prestage = lambda timeout=None: True
-    # what chip_smoke's earlier phases leave ready: the C++ prefilter built, the card's context up
-    if native.get_library() is None:
-        raise RuntimeError(f"turn {label}: the C++ prefilter did not build")
+    # what chip_smoke's earlier phases leave ready: the C++ prefilter built (its loader raises when it
+    # cannot be; a tree from before the shared loader builds it in its first search), the card's context up
+    if hasattr(native, "library"):
+        native.library()
     torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     db, _, _ = cs.real_db()

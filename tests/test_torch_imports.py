@@ -109,8 +109,10 @@ def test_native_library_builds_under_the_port_build_dir():
     """The C++ prefilter compiles into the port's gitignored build/, not
     next to its source, and never into the JAX package."""
     from genomad_torch import native
+    from genomad_torch.build_dir import library_path
 
     build = REPO / "genomad_torch" / "build"
-    assert native._LIB_PATH.parent == build
-    assert native._LIB_PATH.is_relative_to(REPO / "genomad_torch")
-    assert not native._LIB_PATH.is_relative_to(REPO / "genomad_tpu")
+    path = library_path("genomad_native", native._SOURCES, native._GXX_FLAGS)
+    assert path.parent == build
+    assert path.is_relative_to(REPO / "genomad_torch")
+    assert not path.is_relative_to(REPO / "genomad_tpu")

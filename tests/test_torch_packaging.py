@@ -71,20 +71,22 @@ def test_kernel_and_prefilter_builds_use_the_build_dir():
     from genomad_torch import native
     from genomad_torch.ops import _build
 
-    assert _build.BUILD_DIR == bd.build_dir() == PORT / "build"
-    assert native._LIB_PATH.parent == bd.build_dir()
+    assert _build._target("sw").parent == bd.build_dir() == PORT / "build"
+    assert bd.library_path("genomad_native", native._SOURCES, native._GXX_FLAGS).parent == bd.build_dir()
     assert _build.CSRC == PORT / "csrc"
 
 
 @pytest.mark.parametrize("module", ["ops._build", "native"])
 def test_builds_follow_a_read_only_install(tmp_path, module):
     """In a fresh process whose package directory reports read-only, the
-    kernels and the prefilter both build into the cache directory."""
+    kernels and the prefilter both build into the cache directory (the
+    prefilter is built there and loaded from there)."""
+    library = {"ops._build": "m._target('sw')", "native": "m.library()._name"}[module]
     code = (
         "import os, sys; from pathlib import Path; import genomad_torch.build_dir as bd; "
         "bd._writable = lambda p: False; "
         f"import genomad_torch.{module} as m; "
-        "print(getattr(m, 'BUILD_DIR', None) or m._LIB_PATH.parent)"
+        f"print(Path({library}).parent)"
     )
     env = {**os.environ, "XDG_CACHE_HOME": str(tmp_path)}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120, check=True)
@@ -107,5 +109,34 @@ def test_kernels_and_prefilter_are_named_by_content_and_flags(tmp_path):
     assert bd.library_name("x", [src], ["-O2"]) != name
     src.write_text("int f() { return 2; }\n")
     assert bd.library_name("x", [src], ["-O3"]) != name
-    assert native._LIB_PATH.name == bd.library_name("genomad_native", sorted((PORT / "native").glob("*.cpp")), native._GXX_FLAGS)
+    prefilter = bd.library_path("genomad_native", native._SOURCES, native._GXX_FLAGS)
+    assert prefilter.name == bd.library_name("genomad_native", sorted((PORT / "native").glob("*.cpp")), native._GXX_FLAGS)
+    assert native.library()._name == str(prefilter)
     assert _build._target("sw").name == bd.library_name("sw", sorted((PORT / "csrc").glob("*.cu*")), _build.NVCC_FLAGS)
+
+
+def test_a_failed_host_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    """The C++ prefilter is the search's only prefilter: when its compiler
+    fails, loading it raises with the compiler's output, and so does a
+    search that needs it, in place of returning hits. Nothing is left in
+    the build dir."""
+    from genomad_torch import native
+    from genomad_torch.ops import protein_search as tps
+    from genomad_torch.ops.profiledb import ProfileDB
+
+    cxx = tmp_path / "cxx"
+    cxx.write_text("#!/bin/sh\necho 'prefilter.cpp:1:1: error: this compiler always fails'\nexit 1\n")
+    cxx.chmod(0o755)
+    monkeypatch.setattr(native, "_CXX", str(cxx))
+    monkeypatch.setattr(bd, "_writable", lambda p: False)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    db = ProfileDB.synthetic(seed=5, n_profiles=300, min_len=40, max_len=60)  # above 256: the search prefilters
+    native.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="this compiler always fails"):
+            native.library()
+        with pytest.raises(RuntimeError, match="this compiler always fails"):
+            tps.search(["q"], ["MKVLAAGIVGLLSTAQAQE" * 4], db, device="cpu")
+    finally:
+        native.library.cache_clear()
+    assert list((tmp_path / "cache" / "genomad_torch").iterdir()) == []

@@ -6,6 +6,7 @@ all-pairs path, the 768/1024 length buckets, a tail of profiles longer
 than 1,024 columns and the length limit."""
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -330,9 +331,8 @@ def test_search_counts_its_stages_and_the_native_prefilter():
     assert {"prefilter_s", "staging_s", "sw_forward_s", "sw_reverse_s", "finalize_s"} <= set(tps.STATS)
     assert tps.STATS["pairs_forward"] >= tps.STATS["pairs_reverse"] > 0
     assert tps.STATS["cells_forward"] > tps.STATS["cells_reverse"] > 0
-    if native.get_library() is not None:  # g++ present: the C++ prefilter served the search
-        assert native.native_prefilter_batch.uses > uses
-        assert native._LIB_PATH.parent.name == "build"
+    assert native.native_prefilter_batch.uses > uses
+    assert Path(native.library()._name).parent.name == "build"
 
 
 # ---------------------------------------------------------------------------

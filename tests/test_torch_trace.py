@@ -170,9 +170,8 @@ def test_stats_is_the_registry_and_every_key_still_counts():
     assert all(tps.STATS[k] > 0 for k in old if k != "staging_wait_s"), dict(tps.STATS)
     assert "staging_wait_s" in tps.STATS
     assert tps.STATS["search.groups"] == 2
-    if native.get_library() is not None:
-        assert tps.STATS["prefilter.queries"] == len(names)
-        assert tps.STATS["prefilter.hits"] > tps.STATS["prefilter.candidates"] > 0
+    assert tps.STATS["prefilter.queries"] == len(names)
+    assert tps.STATS["prefilter.hits"] > tps.STATS["prefilter.candidates"] > 0
 
 
 def _prefilter_inputs(db, seqs):
@@ -182,8 +181,6 @@ def _prefilter_inputs(db, seqs):
 
 
 def test_native_prefilter_counts_the_same_work_at_any_thread_count(capfd):
-    if native.get_library() is None:
-        pytest.skip("no C++ toolchain: the numpy prefilter serves the search")
     db, _, seqs = _search_case()
     inputs = _prefilter_inputs(db, seqs)
     counts, results = [], []
@@ -199,6 +196,14 @@ def test_native_prefilter_counts_the_same_work_at_any_thread_count(capfd):
         assert 0 < c["prefilter.thread_s"] <= c["prefilter.slot_s"]
     assert all(np.array_equal(a, b) for a, b in zip(results[0][0], results[1][0]))
     assert capfd.readouterr().err == ""
+
+
+def test_native_prefilter_given_no_queries_returns_empty_lists():
+    db, _, _ = _search_case()
+    before, uses = dict(trace.COUNTERS), native.native_prefilter_batch.uses
+    assert native.native_prefilter_batch(**_prefilter_inputs(db, [])) == ([], [], 0)
+    assert native.native_prefilter_batch.uses == uses
+    assert {k: trace.COUNTERS.get(k, 0.0) for k in native.WORK_KEYS} == {k: before.get(k, 0.0) for k in native.WORK_KEYS}
 
 
 # ---------------------------------------------------------------------------
