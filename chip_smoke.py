@@ -782,7 +782,7 @@ def where_the_time_goes(fasta: Path, cache_npz: Path, workdir: Path) -> dict:
         timed("check_fasta_s", lambda: sequence.check_fasta(fasta))
         timed("md5_s", lambda: utils.get_md5(fasta))
         bases = timed("encode_windows_s", lambda: nn_pipeline.encode_windows(fasta)[0])
-        timed("savez_compressed_s", lambda: np.savez_compressed(workdir / "cache.npz", bases=bases))
+        timed("cache_write_s", lambda: utils.savez_compressed_threaded(workdir / "cache.npz", bases=bases))
         timed("load_cache_s", lambda: np.load(cache_npz)["bases"])
         raw = timed("load_params_s", weights.load_params)
         model = timed("model_to_device_s", lambda: igloo.IglooClassifier(raw))

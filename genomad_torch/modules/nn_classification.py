@@ -9,10 +9,11 @@ the same window/merge numerics. The compute path is the PyTorch IGLOO model
 runs on the card and raises without one; ``device="cpu"`` runs the plain
 PyTorch versions of the kernels. Spans (``genomad_torch.trace``):
 ``module.nn_classification`` around ``nn.check_fasta``, ``nn.encode``,
-``nn.cache_write`` (the window cache's compressed write), ``nn.model_load``,
+``nn.cache_write`` (the window cache's compressed write, its deflate split
+over the ``threads`` by ``utils.savez_compressed_threaded``), ``nn.model_load``,
 ``nn.inference`` and ``nn.tables`` (the scores' npz and tsv); the input's
-``md5`` for the execution record; counters ``nn.windows`` and
-``nn.cache_bytes``.
+``md5`` for the execution record; counters ``nn.windows``, ``nn.cache_bytes``
+and ``nn.cache_chunks``.
 """
 
 from __future__ import annotations
@@ -38,8 +39,11 @@ def _write_scores_tsv(path: Path, names, predictions) -> None:
             fout.write(f"{name}\t{formatted}\n")
 
 
-def _classify_fasta(fasta_path, cache_dir, cache_npz, id_key, single_window, batch_size, device, mesh, console, skip):
-    """Encode (or load cached) windows, run the model, merge per contig."""
+def _classify_fasta(
+    fasta_path, cache_dir, cache_npz, id_key, single_window, batch_size, threads, device, mesh, console, skip
+):
+    """Encode (or load cached) windows, run the model, merge per contig. The
+    window cache is deflated on ``threads`` threads (``None``: every core)."""
     if skip and cache_npz.exists():
         console.log(f"{cache_npz.name} was found. Skipping sequence encoding.")
         cached = np.load(cache_npz)
@@ -51,12 +55,13 @@ def _classify_fasta(fasta_path, cache_dir, cache_npz, id_key, single_window, bat
         with console.timer("window-encoding", span="nn.encode"):
             bases, names, ids = nn_pipeline.encode_windows(fasta_path, single_window)
         with trace.span("nn.cache_write"):
-            np.savez_compressed(
+            chunks = utils.savez_compressed_threaded(
                 cache_npz,
+                threads,
                 bases=bases,
                 **{f"{id_key}_names": names, f"{id_key}_ids": ids},
             )
-        trace.count("nn.cache_bytes", cache_npz.stat().st_size)
+        trace.count_many({"nn.cache_bytes": cache_npz.stat().st_size, "nn.cache_chunks": chunks["bases"]})
         console.log(f"Encoded {bases.shape[0]} windows from {len(names)} sequences.")
     if not len(names):
         return names, np.zeros((0, igloo.N_CLASSES), dtype=np.float32)
@@ -207,6 +212,7 @@ def main(
             "contig",
             single_window,
             batch_size,
+            threads,
             device,
             mesh,
             console,
@@ -242,6 +248,7 @@ def main(
                 "provirus",
                 single_window,
                 batch_size,
+                threads,
                 device,
                 mesh,
                 console,

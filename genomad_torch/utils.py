@@ -1,8 +1,10 @@
-"""Runtime utilities: console/logging, file IO, the resume protocol and math
-primitives.
+"""Runtime utilities: console/logging, file IO, the resume protocol, the
+window cache's archive writer and math primitives.
 
 Copied from ``genomad_tpu/utils.py`` (all but ``Console.status``, which no
-module of the port calls); behaviour and file formats are unchanged. Reference = apcamargo/genomad
+module of the port calls); behaviour and file formats are unchanged. Added:
+``savez_compressed_threaded``, ``np.savez_compressed``'s zip with each
+member's deflate split over threads. Reference = apcamargo/genomad
 v1.12.0:
   - compression sniffing / transparent open: genomad/utils.py:126-171
   - md5 + execution-info resume protocol:    genomad/utils.py:216-297
@@ -21,7 +23,13 @@ import lzma
 import os
 import re
 import shutil
+import struct
 import sys
+import threading
+import time
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from datetime import datetime, timezone
 from enum import Enum, auto
@@ -188,8 +196,6 @@ class Console:
         """Per-stage wall-clock timing, logged when the stage ends; the
         stage is also a span (``genomad_torch.trace``) named ``span``, or
         the stage's name."""
-        import time
-
         with trace.span(span or stage):
             start = time.perf_counter()
             yield
@@ -274,6 +280,131 @@ def output_prefix(input_path: Path) -> str:
     if is_compressed(input_path) != Compression.uncompressed:
         prefix = prefix.rsplit(".", 1)[0]
     return prefix
+
+
+# ---------------------------------------------------------------------------
+# Compressed array archives, deflated on every host core
+# ---------------------------------------------------------------------------
+
+DEFLATE_LEVEL = 6  # zlib's default: the level np.savez_compressed deflates at
+CHUNK_BYTES = 256 * 1024  # a member is split into chunks of at least this many bytes
+_ZIP64_LIMIT = (1 << 31) - 1  # zipfile.ZIP64_LIMIT: larger sizes and offsets go in zip64 fields
+_LOCAL = struct.Struct("<4s2B4HL2L2H")
+_CENTRAL = struct.Struct("<4s4B4HL2L5H2L")
+_END = struct.Struct("<4s4H2LH")
+_END64 = struct.Struct("<4sQ2H2L4Q")
+_END64_LOCATOR = struct.Struct("<4sLQL")
+
+
+def _npy_member(array) -> tuple[bytes, memoryview]:
+    """The array's ``.npy`` bytes as ``np.lib.format.write_array`` writes
+    them: the header, and a byte view of the C-ordered data (no copy)."""
+    array = np.asarray(array, order="C")
+    if array.dtype.hasobject:
+        raise ValueError("object arrays would need pickles; they are not written")
+    header = io.BytesIO()
+    np.lib.format.write_array_header_1_0(header, np.lib.format.header_data_from_array_1_0(array))
+    return header.getvalue(), memoryview(array.reshape(-1).view(np.uint8))
+
+
+def _deflate(pieces: list, last: bool) -> bytes:
+    """One chunk of a raw deflate stream: a sync flush ends every chunk but
+    the last, so the chunks concatenate into one stream (as pigz builds it)."""
+    z = zlib.compressobj(DEFLATE_LEVEL, zlib.DEFLATED, -15)
+    out = [z.compress(p) for p in pieces]
+    out.append(z.flush(zlib.Z_FINISH if last else zlib.Z_SYNC_FLUSH))
+    return b"".join(out)
+
+
+def _deflate_member(buffers: list, threads: int, chunk_bytes: int) -> tuple[int, list[bytes]]:
+    """CRC-32 and deflate chunks of the concatenated ``buffers``: contiguous
+    chunks of max(chunk_bytes, ceil(size / threads)) bytes, the last shorter,
+    so k = clamp(ceil(size / chunk_bytes), 1, threads) wherever a member
+    exceeds threads^2 bytes; deflated on k threads (zlib releases the
+    interpreter lock while it deflates)."""
+    size = sum(len(b) for b in buffers)
+    step = max(chunk_bytes, -(-size // threads))
+    bounds = [*range(0, size, step), size]
+    k = len(bounds) - 1
+    chunks = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        pieces, start = [], 0
+        for b in buffers:
+            a, z = max(lo, start), min(hi, start + len(b))
+            if a < z:
+                pieces.append(b[a - start : z - start])
+            start += len(b)
+        chunks.append(pieces)
+    with ThreadPoolExecutor(max_workers=k, thread_name_prefix="genomad-deflate") as pool:
+        futures = [pool.submit(_deflate, pieces, i == k - 1) for i, pieces in enumerate(chunks)]
+        crc = 0
+        for b in buffers:  # while the pool deflates
+            crc = zlib.crc32(b, crc)
+        return crc, [f.result() for f in futures]
+
+
+def savez_compressed_threaded(path, threads=None, *, chunk_bytes=CHUNK_BYTES, **arrays) -> dict[str, int]:
+    """Writes ``arrays`` to ``path`` as ``np.savez_compressed`` does: one zip
+    of ``<key>.npy`` members in the order given, deflated at level 6, that
+    ``np.load`` reads (no pickles). Each member's deflate stream is built from
+    chunks deflated in parallel on up to ``threads`` threads (``None``: every
+    available core), each at least ``chunk_bytes``: a small member stays one
+    stream, and each further chunk restarts deflate's 32 KiB window, so the
+    file grows by a fraction of a percent. The file is written under a
+    temporary name beside ``path`` and renamed into place. Returns each key's
+    chunk count."""
+    path = Path(path)
+    threads = max(1, get_n_available_cpus() if threads is None else threads)
+    t = time.localtime()
+    dostime = t.tm_hour << 11 | t.tm_min << 5 | t.tm_sec // 2
+    dosdate = (t.tm_year - 1980) << 9 | t.tm_mon << 5 | t.tm_mday
+    # a name of this process and thread; open() gives the umask's permissions
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    chunk_counts, central = {}, []
+    try:
+        with open(tmp, "wb") as f:
+            for key, array in arrays.items():
+                name = f"{key}.npy"
+                flags = 0 if name.isascii() else 0x800  # UTF-8 name
+                name = name.encode()
+                header, data = _npy_member(array)
+                crc, deflated = _deflate_member([header, data], threads, chunk_bytes)
+                usize, csize, offset = len(header) + len(data), sum(map(len, deflated)), f.tell()
+                # local header: the sizes in its zip64 field, as numpy's force_zip64 members
+                f.write(_LOCAL.pack(
+                    b"PK\x03\x04", 45, 0, flags, zipfile.ZIP_DEFLATED, dostime, dosdate,
+                    crc, 0xFFFFFFFF, 0xFFFFFFFF, len(name), 20,
+                ))
+                f.write(name + struct.pack("<2H2Q", 1, 16, usize, csize))
+                f.writelines(deflated)
+                chunk_counts[key] = len(deflated)
+                extra = []
+                if usize > _ZIP64_LIMIT or csize > _ZIP64_LIMIT:
+                    extra += [usize, csize]
+                    usize = csize = 0xFFFFFFFF
+                if offset > _ZIP64_LIMIT:
+                    extra.append(offset)
+                    offset = 0xFFFFFFFF
+                extra = struct.pack(f"<2H{len(extra)}Q", 1, 8 * len(extra), *extra) if extra else b""
+                central.append(_CENTRAL.pack(
+                    b"PK\x01\x02", 45, 3, 45, 0, flags, zipfile.ZIP_DEFLATED, dostime, dosdate,
+                    crc, csize, usize, len(name), len(extra), 0, 0, 0, 0o600 << 16, offset,
+                ) + name + extra)
+            cd_offset = f.tell()
+            f.writelines(central)
+            cd_size, n = f.tell() - cd_offset, len(central)
+            if n > 0xFFFF or cd_offset > _ZIP64_LIMIT or cd_size > _ZIP64_LIMIT:
+                end64 = f.tell()
+                f.write(_END64.pack(b"PK\x06\x06", 44, 45, 45, 0, 0, n, n, cd_size, cd_offset))
+                f.write(_END64_LOCATOR.pack(b"PK\x06\x07", 0, end64, 1))
+            n = min(n, 0xFFFF)
+            cd_size, cd_offset = min(cd_size, 0xFFFFFFFF), min(cd_offset, 0xFFFFFFFF)
+            f.write(_END.pack(b"PK\x05\x06", 0, 0, n, n, cd_size, cd_offset, 0))
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return chunk_counts
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,15 @@
 encoding, batched prediction, the per-contig merge, the module with its
 output files and resume rules, and the CLI command."""
 
+import zipfile
+
 import numpy as np
 import pytest
 import torch
 from click.testing import CliRunner
 
 from genomad_torch import cli as tcli
+from genomad_torch import trace
 from genomad_torch.models import igloo as tig
 from genomad_torch.modules import nn_classification as tnn
 from genomad_torch.ops import nn_pipeline as tpipe
@@ -126,6 +129,39 @@ def test_module_rerun_skips(tmp_fasta, tmp_path, rng):
     # a changed parameter recomputes
     tnn.main(input_path, out_dir, batch_size=4, single_window=True, verbose=False, device="cpu")
     assert "Previous outputs will be overwritten" in outputs.nn_classification_log.read_text()
+
+
+def test_module_writes_a_large_window_cache_in_chunks(tmp_fasta, tmp_path, rng):
+    # 45 windows: 270,128 bytes of bases, more than one chunk of 256 KiB
+    input_path = tmp_fasta([(f"c{i}", _dna(rng, 90_000)) for i in range(3)])
+    chunks_before = trace.COUNTERS["nn.cache_chunks"]
+    tnn.main(input_path, tmp_path / "out", batch_size=16, threads=4, verbose=False, device="cpu")
+    assert trace.COUNTERS["nn.cache_chunks"] - chunks_before == 2
+
+    cache_path = GenomadOutputs("input", tmp_path / "out").seq_window_id_output
+    with zipfile.ZipFile(cache_path) as z:
+        assert z.testzip() is None
+    cache = np.load(cache_path)
+    assert cache.files == ["bases", "contig_names", "contig_ids"]
+    for got, expected in zip((cache[key] for key in cache.files), tpipe.encode_windows(input_path)):
+        assert got.dtype == expected.dtype
+        np.testing.assert_array_equal(got, expected)
+
+
+def test_module_resumes_from_the_window_cache_it_wrote(tmp_fasta, tmp_path, rng):
+    input_path = tmp_fasta([(f"c{i}", _dna(rng, 6_500)) for i in range(3)])
+    out_dir = tmp_path / "out"
+    tnn.main(input_path, out_dir, batch_size=4, verbose=False, device="cpu")
+    outputs = GenomadOutputs("input", out_dir)
+    first = np.load(outputs.nn_classification_npz_output)["predictions"]
+
+    # without the scores, a rerun classifies again from the cache through the skip branch
+    outputs.nn_classification_npz_output.unlink()
+    tnn.main(input_path, out_dir, batch_size=4, verbose=False, device="cpu")
+    log = outputs.nn_classification_log.read_text()
+    assert "Previous execution detected" in log
+    assert f"{outputs.seq_window_id_output.name} was found. Skipping sequence encoding." in log
+    np.testing.assert_array_equal(np.load(outputs.nn_classification_npz_output)["predictions"], first)
 
 
 def test_cli_command_matches_jax_options():
