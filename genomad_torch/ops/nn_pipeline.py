@@ -27,7 +27,7 @@ import copy
 import numpy as np
 import torch
 
-from genomad_torch import sequence
+from genomad_torch import sequence, trace
 from genomad_torch.models import igloo
 from genomad_torch.parallel import mesh as meshlib
 
@@ -40,12 +40,14 @@ def encode_windows(fasta_path: Path, single_window: bool = False):
     """Encode a FASTA file into (base_codes, contig_names, contig_ids).
 
     base_codes: uint8 (n_windows, 6000) with ACGT=0..3, N/other=4.
-    contig_ids maps window -> contig index.
+    contig_ids maps window -> contig index. Counts ``nn.window_bp``: the
+    contigs' bases put into windows, before the N padding.
     """
     contig_names: list[str] = []
     contig_ids: list[int] = []
     base_rows: list[np.ndarray] = []
     max_windows = 1 if single_window else None
+    window_bp = 0
     for contig_id, seq in enumerate(sequence.read_fasta(fasta_path, strip_n=True)):
         contig_names.append(seq.accession)
         for window_n, window in enumerate(
@@ -53,11 +55,14 @@ def encode_windows(fasta_path: Path, single_window: bool = False):
         ):
             if window_n > 0 and window.count("N") > MAX_WINDOW_NS:
                 continue
-            padded = window.seq_ascii.ljust(WINDOW_LENGTH, b"N")
+            ascii_seq = window.seq_ascii
+            window_bp += len(ascii_seq)
+            padded = ascii_seq.ljust(WINDOW_LENGTH, b"N")
             base_rows.append(
                 sequence._BASE_CODES[np.frombuffer(padded, np.uint8)].astype(np.uint8)
             )
             contig_ids.append(contig_id)
+    trace.count("nn.window_bp", window_bp)
     if base_rows:
         bases = np.stack(base_rows)
     else:

@@ -65,8 +65,10 @@ while another thread builds; ``prestage_s``, the prestage thread's builds;
 ``sw_forward_s``, ``sw_reverse_s``: K1's launches, and for the reverse
 pass the copy of its results; ``finalize_s``), the pairs and DP cells (at
 real lengths) of each K1 pass (``pairs_forward``, ``cells_forward``,
-``pairs_reverse``, ``cells_reverse``), the pairs whose E-value gate and
-stop rule ran on a CUDA device or on the CPU (``finalize.pairs_on_card``,
+``pairs_reverse``, ``cells_reverse``) and the part of them whose profile
+bucket takes K1's long body (``pairs_forward_long``, ``cells_forward_long``,
+``cells_reverse_long``), the pairs whose E-value gate and stop rule ran
+on a CUDA device or on the CPU (``finalize.pairs_on_card``,
 ``finalize.pairs_on_host``), the query groups (``search.groups``) and the
 native prefilter's own counts (``prefilter.*``). The prefilter and the
 prestage run in threads beside the device work, so the stages overlap and
@@ -100,7 +102,7 @@ from genomad_torch import native, trace
 from genomad_torch.device import resolve_device
 from genomad_torch.ops import profiledb
 from genomad_torch.ops.profiledb import N_AA, ProfileDB
-from genomad_torch.ops.sw import sw_pairs
+from genomad_torch.ops.sw import _CHUNK_MAX_LP, sw_pairs
 
 # Karlin-Altschul statistics (gapped BLOSUM62 regime).
 KA_LAMBDA = 0.267
@@ -418,12 +420,24 @@ class _PairAligner:
                         return out.cpu().numpy()
         return out
 
+    def _long(self, pairs_p) -> np.ndarray:
+        """The pairs whose profile bucket is wider than K1's chunk body
+        takes (1,024 is a bucket bound): its long body runs them."""
+        return self.db.lengths[pairs_p] > _CHUNK_MAX_LP
+
     def forward(self, pairs_q, pairs_p) -> torch.Tensor:
         """(N, 4) f32 forward-pass stats (score, end_i, end_j, evalue32) on
         the aligner's device, the E-value gate computed beside K1. Nothing
         waits for the card: the stats stay there for the stop rule."""
-        _count("pairs_forward", len(pairs_q))
-        _count("cells_forward", float(np.dot(self.q_lengths[pairs_q].astype(np.float64), self.db.lengths[pairs_p])))
+        q_len = self.q_lengths[pairs_q].astype(np.float64)
+        p_len = self.db.lengths[pairs_p]
+        long = self._long(pairs_p)
+        trace.count_many({
+            "pairs_forward": len(pairs_q),
+            "cells_forward": float(np.dot(q_len, p_len)),
+            "pairs_forward_long": int(long.sum()),
+            "cells_forward_long": float(np.dot(q_len[long], p_len[long])),
+        })
 
         def launch(sel, all_q, all_p, idx, lengths, plen):
             best, end_i, end_j = sw_pairs(all_q, all_p, idx, lengths=lengths)
@@ -438,8 +452,12 @@ class _PairAligner:
         (mmseqs2.py:123-140).
 
         ends: (M, 2) f32 forward (end_i, end_j) per pair."""
-        _count("pairs_reverse", len(pairs_q))
-        _count("cells_reverse", float(np.dot(ends[:, 0].astype(np.float64) + 1, ends[:, 1].astype(np.float64) + 1)))
+        cells = (ends[:, 0].astype(np.float64) + 1) * (ends[:, 1].astype(np.float64) + 1)
+        trace.count_many({
+            "pairs_reverse": len(pairs_q),
+            "cells_reverse": float(cells.sum()),
+            "cells_reverse_long": float(cells[self._long(pairs_p)].sum()),
+        })
 
         def launch(sel, all_q, all_p, idx, lengths, plen):
             ends_t = _upload(np.ascontiguousarray(ends[sel].T.astype(np.int32)), self.device)

@@ -19,9 +19,10 @@ call or group where the work happens:
   positions its forward and backward loops stepped (2 x (T - 1) a batch
   padded to T genes);
 - ``nn.windows``, ``nn.cache_bytes``: windows classified, bytes of the
-  window caches written; ``nn.cache_chunks``: the deflate chunks each
-  cache's ``bases`` member was written in (1: one stream;
-  ``utils.savez_compressed_threaded``);
+  window caches written; ``nn.window_bp``: the contigs' bases that
+  ``ops.nn_pipeline.encode_windows`` put into windows, before the N
+  padding; ``nn.cache_chunks``: the deflate chunks each cache's ``bases``
+  member was written in (1: one stream; ``utils.savez_compressed_threaded``);
 - ``md5.bytes``: bytes hashed for the execution records;
 - ``train.steps``, ``train.windows``, ``train.bp``: the trainer's steps,
   the windows its batches held and their bases before padding;

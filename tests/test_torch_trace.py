@@ -273,6 +273,28 @@ def test_md5_spans_and_counts_its_bytes(tmp_path):
     assert [s.name for s in trace.spans()] == ["md5"]
 
 
+def test_encode_windows_counts_the_bases_it_puts_into_windows(tmp_path):
+    """``nn.window_bp``: each kept window's bases before the N padding; a
+    short last window and a window of more than 4,000 N after the first are
+    not windows, and the contig's end runs of N are stripped."""
+    from genomad_torch.ops import nn_pipeline
+
+    rng = np.random.default_rng(3)
+    acgt = lambda n: "".join("ACGT"[i] for i in rng.integers(0, 4, n))  # noqa: E731
+    contigs = {
+        "short": acgt(2_000),  # one window of 2,000
+        "two": acgt(13_000),  # 6,000 + 6,000; the last 1,000 is under 2,500
+        "n_rich": acgt(6_000) + "N" * 4_500 + acgt(1_500),  # the second window holds 4,500 N
+        "n_ends": "N" * 40 + acgt(3_000) + "N" * 25,  # stripped to 3,000
+    }
+    path = tmp_path / "x.fna"
+    path.write_text("".join(f">{k}\n{v}\n" for k, v in contigs.items()))
+    before = trace.COUNTERS["nn.window_bp"]
+    bases, names, ids = nn_pipeline.encode_windows(path)
+    assert list(ids) == [0, 1, 1, 2, 3]
+    assert trace.COUNTERS["nn.window_bp"] - before == 2_000 + 12_000 + 6_000 + 3_000 == int((bases != 4).sum())
+
+
 # ---------------------------------------------------------------------------
 # The benchmark's readers of the spans and counters
 # ---------------------------------------------------------------------------
