@@ -56,8 +56,9 @@ only the full run, with no arguments, does.
 7. annotate - annotate through its entry point on a DB directory with the
               20,000-profile integral DB and a 16-profile integrase DB, over
               a ~2 Mbp synthetic genome with planted marker genes; checks the
-              genes table, K1's forward and reverse launches and the native
-              prefilter, and prints where the time goes.
+              genes table, K1's forward and reverse launches and the card's
+              prefilter (every group, no host group), and prints where the
+              time goes.
 8. end-to-end - cli.run_end_to_end (score calibration on) on annotate's DB
               directory over a ~2 Mbp genome of make_gene genes plus planted
               host-virus-host contigs with an integrase gene: a provirus on
@@ -104,6 +105,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -1471,6 +1473,7 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
     from genomad_torch.modules import annotate
     from genomad_torch.ops import conv, patch_reduce, sw
     from genomad_torch.ops import protein_search as ps
+    from genomad_torch.ops.prefilter import card_prefilter_batch
     from genomad_torch.paths import GenomadOutputs
 
     t0 = time.perf_counter()
@@ -1488,7 +1491,7 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
     for k in (conv.embed_conv, conv.embed_conv_bases, conv.causal_conv, patch_reduce.fused_reduce):
         k.launches = 0
     sw.sw_pairs.launches = sw.sw_pairs.forward_launches = sw.sw_pairs.reverse_launches = 0
-    native.native_prefilter_batch.uses = 0
+    native.native_prefilter_batch.uses = card_prefilter_batch.launches = 0
     ps.STATS.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1513,8 +1516,11 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
         raise AssertionError(f"K1 launches on the annotate path: forward {fwd}, reverse {rev}")
     if nn_launches:
         raise AssertionError("the nn kernels ran on the annotate path")
-    if native.native_prefilter_batch.uses <= 0:
-        raise AssertionError("the C++ prefilter served no call of the search")
+    if card_prefilter_batch.launches <= 0 or native.native_prefilter_batch.uses:
+        raise AssertionError("the card's prefilter must serve every call of the search")
+    if stats.get("prefilter.card_groups", 0) != stats.get("search.groups", -1) or stats.get("prefilter.host_groups"):
+        raise AssertionError(f"prefilter groups: card {stats.get('prefilter.card_groups')}, host "
+                             f"{stats.get('prefilter.host_groups')}, search {stats.get('search.groups')}")
 
     # the module's own stage timers, in the log in order: gene-calling, marker-search
     gene_s, search_s = map(float, re.findall(r"completed in ([0-9.]+)s", outputs.annotate_log.read_text()))
@@ -1527,14 +1533,14 @@ def annotate_phase(results: dict, workdir: Path, db) -> dict:
         "wall_s": wall,
         "k1_launches": {"forward": fwd, "reverse": rev},
         "pairs": {"forward": int(stats.get("pairs_forward", 0)), "reverse": int(stats.get("pairs_reverse", 0))},
-        "native_prefilter_calls": native.native_prefilter_batch.uses,
+        "card_prefilter_calls": card_prefilter_batch.launches,
         "setup_s (DB dir + FASTA, not in wall)": setup_s,
     }
     log("# annotate: " + json.dumps(summary))
     where = {
         "gene_calling_s": gene_s,
         "marker_search_s": search_s,
-        "prefilter_s (worker thread)": stats.get("prefilter_s", 0.0),
+        "prefilter_s (prefilter thread, on the card)": stats.get("prefilter_s", 0.0),
         "prestage_s (prestage thread)": stats.get("prestage_s", 0.0),
         "bucket_staging_s": stats.get("staging_s", 0.0),
         "staging_wait_s": stats.get("staging_wait_s", 0.0),
@@ -1660,6 +1666,8 @@ def real_db_phase() -> dict:
     }
     summary.update(search_device_share(names, seqs, db))
     log("# search at the real DB's size: " + json.dumps(summary))
+    summary["prefilter"] = prefilter_row(db, seqs[:BATCH])
+    log("# prefilter, one group: " + json.dumps(summary["prefilter"]))
     del db
 
     # the card against the port's own CPU run, on a 2,000-profile DB
@@ -1672,6 +1680,58 @@ def real_db_phase() -> dict:
     log(f"# search 2,000 profiles x 60 queries: card == CPU ({len(on_card)} hits)")
     summary["stop_rule"] = stop_rule_card_vs_cpu()
     return summary
+
+
+def prefilter_row(db, seqs) -> dict:
+    """The card's prefilter on one search group (``seqs``) against the
+    real DB's size, as the marker search calls it (-s 4.2, composition
+    bias on): its lists equal to the C++'s (ids, and scores bit for bit),
+    the call's wall (host clock, median of 3 after a warm-up), the device
+    seconds of its kernels (a profiled call), the C++ on every host core
+    (median of 3), and the bound: each index hit's 8-byte entry and one
+    32-byte sector a row of each candidate's full window (2 x 16 + 5 rows)
+    at 3.35 TB/s."""
+    from genomad_torch import native, trace
+    from genomad_torch.ops import blosum, profiledb
+    from genomad_torch.ops.prefilter import card_prefilter_batch
+
+    residues = [profiledb.encode_protein(s) for s in seqs]
+    kw = dict(max_out_per_query=db.n_profiles, kmer_thr=blosum.kmer_score_threshold(4.2),
+              bias_list=[blosum.comp_bias(r) for r in residues])
+    index = db.kmer_index(1)
+    dev = torch.device("cuda")
+
+    def timed(fn, **more):
+        times = []
+        for _ in range(4):
+            before = dict(trace.COUNTERS)
+            t0 = time.perf_counter()
+            out = fn(index, residues, db, 25.0, **kw, **more)
+            times.append(time.perf_counter() - t0)
+        work = {k: trace.COUNTERS[k] - before.get(k, 0.0) for k in native.WORK_KEYS[:4]}
+        return out, float(np.median(times[1:])), work
+
+    card, card_s, work = timed(card_prefilter_batch, device=dev)
+    cpp, cpp_s, cpp_work = timed(native.native_prefilter_batch)
+    if card[2] != cpp[2] or work != cpp_work or any(
+        not np.array_equal(a, b) for a, b in zip(card[0], cpp[0])
+    ) or any(not np.array_equal(a.view(np.int32), b.view(np.int32)) for a, b in zip(card[1], cpp[1])):
+        raise AssertionError("card prefilter != C++ prefilter on the real DB's group")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        card_prefilter_batch(index, residues, db, 25.0, device=dev, **kw)
+        torch.cuda.synchronize()
+    by_kernel = {e.key: e.self_device_time_total / 1e6 for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA") and "prefilter_" in e.key}
+    bound_s = (8 * work["prefilter.hits"] + 32 * 37 * work["prefilter.candidates"]) / PEAK_BYTES_PER_S
+    return {
+        "queries": len(seqs), "residues": int(sum(len(r) for r in residues)), **work,
+        "selected": int(sum(len(i) for i in card[0])),
+        "card_call_ms": 1e3 * card_s, "kernels_ms": 1e3 * sum(by_kernel.values()),
+        "kernels_ms_by_name": {re.search(r"prefilter_\w+", k).group(0): 1e3 * v for k, v in by_kernel.items()},
+        "cpp_ms": 1e3 * cpp_s, "host_cores": os.cpu_count(), "bound_ms": 1e3 * bound_s,
+    }
 
 
 def stop_rule_card_vs_cpu(n: int = 8_400_000, n_profiles: int = 227_897) -> dict:

@@ -1,6 +1,10 @@
-"""The marker search's prefilter: the C++ library ``prefilter.cpp``.
+"""The marker search's prefilter on the host: the C++ library ``prefilter.cpp``.
 
-It is the port's one prefilter. It is compiled at first use with ``g++``
+A search on the CPU prefilters here; a search on a card runs the kernels of
+``csrc/prefilter.cu`` (``ops.prefilter``), which give this library's lists
+bit for bit and take their k-mer tables and window from it
+(:func:`expansion_tables`, :func:`prefilter_window`): this library is their
+plain version and their tests' oracle. It is compiled at first use with ``g++``
 (``_GXX_FLAGS``) through ``genomad_torch.build_dir``, as the kernels are
 with ``nvcc``, into the port's build dir under a name that hashes the
 source and the flags. A host without a C++ compiler gets the compiler's
@@ -54,6 +58,19 @@ _SIGNATURE = [
     ctypes.c_int32,                   # n_threads
     ctypes.POINTER(ctypes.c_double),  # out_work (6)
 ]
+_TABLES_SIGNATURE = [
+    ctypes.POINTER(ctypes.c_float),   # subst (20x20)
+    ctypes.c_float,                   # kmer_thr
+    ctypes.c_float,                   # kmer_slack
+    ctypes.POINTER(ctypes.c_int64),   # sizes (2): l2, l3 entries
+    ctypes.POINTER(ctypes.c_float),   # the tables' threshold
+    ctypes.POINTER(ctypes.c_int64),   # l2_off (401; NULL = sizes only)
+    ctypes.POINTER(ctypes.c_int32),   # l2_code
+    ctypes.POINTER(ctypes.c_float),   # l2_score
+    ctypes.POINTER(ctypes.c_int64),   # l3_off (8001)
+    ctypes.POINTER(ctypes.c_int32),   # l3_code
+    ctypes.POINTER(ctypes.c_float),   # l3_score
+]
 
 
 @functools.cache
@@ -61,7 +78,8 @@ def library() -> ctypes.CDLL:
     """The prefilter's library, built if needed; raises ``RuntimeError``
     with the compiler's output when it cannot be built."""
     path, _ = compile_library("genomad_native", _CXX, _SOURCES, _GXX_FLAGS)
-    return load_library(path, {"prefilter_batch": _SIGNATURE}, restype=ctypes.c_int64)
+    return load_library(path, {"prefilter_batch": _SIGNATURE, "prefilter_tables": _TABLES_SIGNATURE,
+                               "prefilter_window": []}, restype=ctypes.c_int64)
 
 
 def _ptr(array: np.ndarray, ctype):
@@ -203,3 +221,36 @@ def _subst_args(kmer_thr: float | None, keepalive: list):
     subst = np.ascontiguousarray(BLOSUM62, np.float32)
     keepalive.append(subst)
     return (_ptr(subst, ctypes.c_float), float(kmer_thr))
+
+
+def expansion_tables(kmer_thr: float, slack: float) -> dict:
+    """The similar-k-mer product tables ``prefilter_batch`` expands with at
+    ``kmer_thr`` (built at ``kmer_thr - slack``): ``l2_off`` (401,),
+    ``l2_code``, ``l2_score`` and ``l3_off`` (8001,), ``l3_code``,
+    ``l3_score`` (int64 offsets, int32 codes, f32 scores, each list sorted
+    by score descending, code ascending), and ``thr``, the f32 threshold
+    they were built at. The card prefilter expands from these, so both
+    routes list the same k-mers in the same order."""
+    lib = library()
+    keepalive: list = []
+    subst, thr = _subst_args(kmer_thr, keepalive)
+    sizes = np.zeros(2, np.int64)
+    built = ctypes.c_float(0.0)
+    null = [ctypes.POINTER(t)() for t in (ctypes.c_int64, ctypes.c_int32, ctypes.c_float)] * 2
+    lib.prefilter_tables(subst, thr, float(slack), _ptr(sizes, ctypes.c_int64), ctypes.byref(built), *null)
+    out = {
+        "l2_off": np.zeros(401, np.int64), "l2_code": np.zeros(sizes[0], np.int32), "l2_score": np.zeros(sizes[0], np.float32),
+        "l3_off": np.zeros(8001, np.int64), "l3_code": np.zeros(sizes[1], np.int32), "l3_score": np.zeros(sizes[1], np.float32),
+    }
+    ctypes_of = {np.int64: ctypes.c_int64, np.int32: ctypes.c_int32, np.float32: ctypes.c_float}
+    arrays = [_ptr(out[k], ctypes_of[out[k].dtype.type]) for k in ("l2_off", "l2_code", "l2_score", "l3_off", "l3_code", "l3_score")]
+    lib.prefilter_tables(subst, thr, float(slack), _ptr(sizes, ctypes.c_int64), ctypes.byref(built), *arrays)
+    out["thr"] = np.float32(built.value)
+    return out
+
+
+def prefilter_window() -> int:
+    """The extension half-window ``prefilter_batch`` scans with: the C++'s
+    own parse of ``GENOMAD_PREFILTER_WINDOW`` (16 when unset, 2^40, the
+    whole diagonal, at 0 or below)."""
+    return int(library().prefilter_window())

@@ -1,14 +1,16 @@
 // Native prefilter: query k-mer lookup + ungapped diagonal extension.
 //
-// The port's one prefilter: the host-side stage of
+// The port's host prefilter: the stage of
 // genomad_torch.ops.protein_search.search that replaces MMseqs2's C++
 // prefilter (reference chain: genomad/mmseqs2.py:76-96, `mmseqs prefilter
-// -k 5 --min-ungapped-score 25 --max-seqs 10000000`). The device-side
-// alignment runs on the GPU; this stage is a sparse integer workload
-// (inverted-index lookups), hence native CPU. It is built at first use with
-// a host C++ compiler (genomad_torch.native), as the kernels are with nvcc;
-// a host without one gets an error, not another path. The algorithm is
-// stated in NumPy by genomad_tpu/ops/protein_search.py's prefilter_query.
+// -k 5 --min-ungapped-score 25 --max-seqs 10000000`) in a search on the
+// CPU, and the plain version and oracle of the card's prefilter
+// (genomad_torch/csrc/prefilter.cu), which gives these lists bit for bit
+// and expands from this file's tables (`prefilter_tables`). It is built at
+// first use with a host C++ compiler (genomad_torch.native), as the kernels
+// are with nvcc; a host without one gets an error, not another path. The
+// algorithm is stated in NumPy by genomad_tpu/ops/protein_search.py's
+// prefilter_query.
 //
 // Algorithm:
 //   1. each query 5-mer expands into its similar-k-mer list (score vs the
@@ -819,5 +821,34 @@ int64_t prefilter_batch(
                   n_threads;
     return n_queries;
 }
+
+// The product tables prefilter_batch expands with for (subst, kmer_thr,
+// kmer_slack), for the card prefilter (genomad_torch/csrc/prefilter.cu),
+// which must expand exactly as this file does. sizes gets {l2 entries, l3
+// entries} and thr_out the tables' threshold; the arrays (N2 + 1 and N3 + 1
+// offsets, codes and scores sorted as in build_tables) are filled only when
+// l2_off is not null.
+int64_t prefilter_tables(const float* subst, float kmer_thr, float kmer_slack,
+                         int64_t* sizes, float* thr_out, int64_t* l2_off,
+                         int32_t* l2_code, float* l2_score, int64_t* l3_off,
+                         int32_t* l3_code, float* l3_score) {
+    const ExpTables* t = get_tables(subst, kmer_thr - kmer_slack);
+    sizes[0] = static_cast<int64_t>(t->l2_code.size());
+    sizes[1] = static_cast<int64_t>(t->l3_code.size());
+    *thr_out = t->thr;
+    if (l2_off != nullptr) {
+        std::copy(t->l2_off.begin(), t->l2_off.end(), l2_off);
+        std::copy(t->l2_code.begin(), t->l2_code.end(), l2_code);
+        std::copy(t->l2_score.begin(), t->l2_score.end(), l2_score);
+        std::copy(t->l3_off.begin(), t->l3_off.end(), l3_off);
+        std::copy(t->l3_code.begin(), t->l3_code.end(), l3_code);
+        std::copy(t->l3_score.begin(), t->l3_score.end(), l3_score);
+    }
+    return 0;
+}
+
+// The extension half-window prefilter_batch scans with (config().window),
+// so that the card prefilter reads GENOMAD_PREFILTER_WINDOW the same way.
+int64_t prefilter_window() { return config().window; }
 
 }  // extern "C"

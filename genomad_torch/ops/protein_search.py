@@ -4,16 +4,19 @@ Port of ``genomad_tpu/ops/protein_search.py`` (single device). It replaces
 the reference's 8-command MMseqs2 subprocess chain (genomad/mmseqs2.py:
 53-196) with a two-stage pipeline:
 
-  1. **Prefilter** (host): query 5-mers, expanded into their BLOSUM62
+  1. **Prefilter**: query 5-mers, expanded into their BLOSUM62
      similar-k-mer lists (``-s`` semantics, ops.blosum), are looked up in
      the DB's consensus-k-mer inverted index; (profile, diagonal) hits are
      scored by maximal ungapped diagonal extension and gated at
-     ``min_ungapped_score`` (25, ``--min-ungapped-score``). The C++
-     library in ``genomad_torch/native`` runs it multithreaded; it is the
-     only prefilter, and building it needs a host C++ compiler, as the
-     kernels need ``nvcc`` (a host without one gets an error). The JAX
-     package's ``genomad_tpu/ops/protein_search.py`` states the algorithm
-     in NumPy (``prefilter_query``).
+     ``min_ungapped_score`` (25, ``--min-ungapped-score``). A search that
+     aligns on a card prefilters there (``ops.prefilter``, the kernels of
+     ``csrc/prefilter.cu``); a search on the CPU runs the C++ library in
+     ``genomad_torch/native`` multithreaded, which is the card route's
+     plain version and gives the same lists bit for bit. Building it needs
+     a host C++ compiler, as the kernels need ``nvcc`` (a host without one
+     gets an error). The JAX package's
+     ``genomad_tpu/ops/protein_search.py`` states the algorithm in NumPy
+     (``prefilter_query``).
 
   2. **Alignment** (device): affine-gap local Smith-Waterman of query
      residues against profile PSSMs, kernel K1 (``ops.sw.sw_pairs``, a
@@ -39,8 +42,8 @@ the reference's 8-command MMseqs2 subprocess chain (genomad/mmseqs2.py:
      - best hit per gene: int bitscore desc, profile length asc, profile id
        asc; the reported E-value is gene_len * db_positions * 2^-int_bits.
 
-Both scheduling modes of the JAX engine are kept (streaming, with the host
-prefilter of group k+1 overlapping the device alignment of group k, and
+Both scheduling modes of the JAX engine are kept (streaming, with the
+prefilter of group k+1 overlapping the alignment of group k, and
 profile-major), and both are bit-equal to the sequential walk. With a
 (data, db) mesh (``genomad_torch.parallel.mesh``) each length bucket of the
 DB is split into db shards, each pair goes to the cell that holds its
@@ -53,7 +56,7 @@ Cold start: the profile buckets are staged on the device once per DB
 object (:func:`_get_staged_profiles`). In a single process, a search over
 more than 4,096 profiles that runs the prefilter first starts a prestage
 thread (:func:`_prestage`) that stages every bucket class of the DB while
-the host prefilters the first query groups, as the JAX engine does; the
+the first query groups are prefiltered, as the JAX engine does; the
 main path waits on whichever bucket it needs first.
 
 ``STATS`` is the port's counter registry (``genomad_torch.trace.COUNTERS``);
@@ -69,8 +72,10 @@ real lengths) of each K1 pass (``pairs_forward``, ``cells_forward``,
 bucket takes K1's long body (``pairs_forward_long``, ``cells_forward_long``,
 ``cells_reverse_long``), the pairs whose E-value gate and stop rule ran
 on a CUDA device or on the CPU (``finalize.pairs_on_card``,
-``finalize.pairs_on_host``), the query groups (``search.groups``) and the
-native prefilter's own counts (``prefilter.*``). The prefilter and the
+``finalize.pairs_on_host``), the query groups (``search.groups``), the
+groups prefiltered on a card or on the host (``prefilter.card_groups``,
+``prefilter.host_groups``) and the prefilter's own counts (``prefilter.*``;
+``.thread_s`` and ``.slot_s`` only on the host). The prefilter and the
 prestage run in threads beside the device work, so the stages overlap and
 their sum may exceed the wall.
 
@@ -101,6 +106,7 @@ import torch
 from genomad_torch import native, trace
 from genomad_torch.device import resolve_device
 from genomad_torch.ops import profiledb
+from genomad_torch.ops.prefilter import card_prefilter_batch
 from genomad_torch.ops.profiledb import N_AA, ProfileDB
 from genomad_torch.ops.sw import _CHUNK_MAX_LP, sw_pairs
 
@@ -609,14 +615,15 @@ def search(
       align all pairs and disable it, as the JAX engine does.
     - ``max_seqs``: candidates per query are capped to the top ``max_seqs``
       by ungapped prefilter score (``--max-seqs``); overflow is warned.
-    - ``n_threads``: host prefilter workers (None = all available).
+    - ``n_threads``: host prefilter workers (None = all available); a
+      search that prefilters on its card has none.
     - ``comp_bias_corr``: MMseqs2's default local composition-bias
       correction of the prefilter (``--comp-bias-corr 1``).
     - ``profile_major``: None = on when the query count reaches
       GENOMAD_PROFILE_MAJOR_MIN (default 8192): prefilter everything, then
       align per profile in the reference's order with early stops.
-      Otherwise the streaming mode overlaps the host prefilter with the
-      device alignment of all candidate pairs and applies the stop rule
+      Otherwise the streaming mode overlaps the prefilter with the
+      alignment of all candidate pairs and applies the stop rule
       post-hoc. Both give the same result.
 
     In one process, a search of more than 4,096 profiles that prefilters
@@ -666,18 +673,27 @@ def search(
 
         def prefilter_group(q_idx):
             """Per-query (candidate ids, ungapped scores) for one group of
-            query indices (host CPU)."""
+            query indices: on the search's card when it aligns on one (the
+            kernels of ``ops.prefilter``), else on the host (the C++)."""
             if all_pairs:
                 ids = np.arange(db.n_profiles, dtype=np.int64)
                 return [(ids, np.zeros(db.n_profiles, np.float32))] * len(q_idx)
             with trace.timed("search.prefilter", "prefilter_s"):
                 res_sub = [residues_list[i] for i in q_idx]
                 bias_sub = [bias_list[i] for i in q_idx] if bias_list is not None else None
-                ids_list, scores_list, n_dropped = native.native_prefilter_batch(
-                    index, res_sub, db, min_ungapped_score,
-                    kmer_thr=kmer_thr, max_out_per_query=out_bound,
-                    n_threads=n_threads, bias_list=bias_sub,
-                )
+                if prefilter_device.type == "cuda":
+                    trace.count("prefilter.card_groups", 1)
+                    ids_list, scores_list, n_dropped = card_prefilter_batch(
+                        index, res_sub, db, min_ungapped_score, kmer_thr=kmer_thr,
+                        max_out_per_query=out_bound, bias_list=bias_sub, device=prefilter_device,
+                    )
+                else:
+                    trace.count("prefilter.host_groups", 1)
+                    ids_list, scores_list, n_dropped = native.native_prefilter_batch(
+                        index, res_sub, db, min_ungapped_score,
+                        kmer_thr=kmer_thr, max_out_per_query=out_bound,
+                        n_threads=n_threads, bias_list=bias_sub,
+                    )
                 drop_total[0] += n_dropped
                 return [
                     (ids.astype(np.int64), scores.astype(np.float32))
@@ -690,6 +706,8 @@ def search(
         else:
             aligner = _PairAligner(db, residues_list, q_lengths, device, torch.from_numpy(ka).to(device))
         fwd_fn, cov_fn = aligner.forward, aligner.coverage
+        # the prefilter runs where the search aligns: this rank's first cell of a mesh
+        prefilter_device = next(iter(aligner.cells.values())).device if sharded else device
 
         group_size = max(64, int(batch_size))
         groups = [
@@ -772,8 +790,8 @@ def _run_streaming(
         host = (pairs_q, pairs_p.astype(np.int32), np.concatenate(spf))
         records.append((*(_upload(a, stats.device) for a in host), stats))
 
-    # pipeline: the host prefilter of group k+1 (the C++ call releases the
-    # GIL) overlaps the host work of group k and, on the card, its K1
+    # pipeline: the prefilter of group k+1 (its C++ or CUDA calls release
+    # the GIL) overlaps the host work of group k and, on the card, its K1
     if len(groups) <= 1 or all_pairs:
         for g in groups:
             run_stage2(g, prefilter_group(g))

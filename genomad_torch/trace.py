@@ -11,8 +11,12 @@ call or group where the work happens:
   ``.codes`` (expanded k-mer codes looked up), ``.candidates`` (double-hit
   diagonals scanned), ``.thread_s`` (the workers' seconds in their query
   groups, summed over threads), ``.slot_s`` (each call's wall times its
-  thread count): ``native/prefilter.cpp``;
+  thread count): ``native/prefilter.cpp``; the card's prefilter
+  (``ops.prefilter``) counts the first four from counts made on the card,
+  and has no thread seconds;
 - ``search.groups``: query groups the marker search prefiltered;
+  ``prefilter.card_groups``, ``prefilter.host_groups``: those prefiltered on
+  a card and on the host;
 - ``gene_calling.contigs``, ``.bp``: contigs and bases the gene caller
   called;
 - ``crf.contigs``, ``crf.steps``: contigs the CRF scored and the gene

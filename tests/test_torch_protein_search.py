@@ -335,6 +335,19 @@ def test_search_counts_its_stages_and_the_native_prefilter():
     assert Path(native.library()._name).parent.name == "build"
 
 
+def test_a_cpu_search_prefilters_on_the_host():
+    from genomad_torch.ops.prefilter import card_prefilter_batch
+
+    db, names, seqs = _pm_case()
+    tps.STATS.clear()
+    launches = card_prefilter_batch.launches
+    tps.search(names, seqs, _twin(db), device="cpu", batch_size=64)
+    assert tps.STATS["search.groups"] == 2
+    assert tps.STATS["prefilter.host_groups"] == tps.STATS["search.groups"]
+    assert tps.STATS.get("prefilter.card_groups", 0) == 0
+    assert card_prefilter_batch.launches == launches
+
+
 # ---------------------------------------------------------------------------
 # The cold-start prestage (DBs above 4,096 profiles, one process)
 # ---------------------------------------------------------------------------
